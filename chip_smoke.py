@@ -8,18 +8,25 @@ it builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, serves the
 paper's query at the CSL scale (396,209 docs, 65,536 terms, depth 3, top-k
 16, beam 32, 8 queries per batch) through ``QueryContext`` and
-``CoocEngine`` with the two kernel methods, and checks the answers against
-the host oracle.  Phases:
+``CoocEngine`` with the two BFS kernel methods, materializes the whole
+CSL network (top-16 per term) through the co-occurrence kernel, and checks
+the answers against the host oracle.  Phases:
 
-  1. device     the card (``nvidia-smi``), the kernels' build
-  2. parity     both kernels == their plain versions, exact, at small,
-                ragged and mid shapes (2^15 docs x 2^13 terms, 256 rows);
-                methods "gemm" and "popcount" served at the mid size
-  3. strings    the quickstart corpus through ``CoocIndex(device="cuda")``
-                for all four methods == the host oracle, then an ingest
-  4. csl        the CSL-scale serving run, per kernel method
-  5. kernels    each kernel timed at the main path's shapes beside its
-                plain version, its bound and a PyTorch yardstick
+  1. device       the card (``nvidia-smi``), the kernels' build
+  2. parity       the three kernels == their plain versions, exact, at
+                  small, ragged and mid shapes (2^15 docs x 2^13 terms,
+                  256 rows, one 128-term row block); methods "gemm" and
+                  "popcount" served, and all four methods materialized,
+                  at the mid size
+  3. strings      the quickstart corpus through ``CoocIndex(device="cuda")``
+                  for all four methods == the host oracle (queries, the
+                  whole network and its statistics), then an ingest
+  4. csl          the CSL-scale serving run, per BFS kernel method
+  5. materialize  the whole CSL network, method "pallas" (the kernel) and
+                  "gemm" (``torch._int_mm``): identical, 16 rows == the
+                  host oracle
+  6. kernels      each kernel timed at the main path's shapes beside its
+                  plain version, its bound and a PyTorch yardstick
 
 Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
@@ -39,15 +46,18 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # the bound of a kernel is the larger of its bytes over the memory rate and
-# its popcounts over the integer pipe's rate
+# its operations over their unit's rate
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16     # CUDA programming guide, compute capability 9.0
+INT8_OPS_PER_S = 1.979e15      # H100 SXM data sheet, dense int8 tensor cores
 
 CSL_DOCS, CSL_TERMS = 396_209, 65_536
 DEPTH, TOPK, BEAM, Q_BATCH = 3, 16, 32, 8
 N_QUERIES = 64
 N_ORACLE = 8                   # queries per method held against the oracle
 MID_DOCS, MID_TERMS = 1 << 15, 1 << 13
+MAT_K, ROW_TILE = 16, 128      # materialization: top-k per term, row block
+N_ROWS_CHECKED = 16            # materialized CSL rows held against the oracle
 
 QUICKSTART = [
     "graph neural networks learn node embeddings from graph structure",
@@ -99,6 +109,30 @@ def oracle_edges(hidx, seeds, depth, topk, beam):
         key = (min(s, d), max(s, d))
         out[key] = max(out.get(key, 0), w)
     return out
+
+
+def oracle_row(hidx, t, k):
+    """Term ``t``'s top-``k`` neighbors by exact co-occurrence count, ties
+    to the lower id, zero counts dropped: [(neighbor, count), ...]."""
+    from repro_torch.core.cooccurrence import _gather_counts
+    counts = _gather_counts(hidx, hidx.postings[t]).astype(np.int64)
+    counts[t] = -1
+    top = np.argsort(-counts, kind="stable")[:k]
+    return [(int(j), int(counts[j])) for j in top if counts[j] > 0]
+
+
+def network_row(net, t, k):
+    """Row ``t`` of a materialized network: [(neighbor, weight), ...]."""
+    sl = slice(t * k, (t + 1) * k)
+    ok = net.valid[sl].cpu().numpy()
+    return [(int(d), int(w)) for d, w, o in
+            zip(net.dst[sl].cpu().numpy(), net.weight[sl].cpu().numpy(), ok)
+            if o]
+
+
+def same_network(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def check_network(res, v):
@@ -170,7 +204,8 @@ def phase_parity(dev):
     """Both kernels against their plain versions on the card; then the
     plain methods "gemm" and "popcount" served at the mid size."""
     import torch
-    from repro_torch.core import QueryContext, build_host_index
+    from repro_torch.core import (QueryContext, build_host_index,
+                                  materialize, unpack_bitmap)
     from repro_torch.core.cooccurrence import _expand_level, initial_state
     from repro_torch.core.query_context import pad_transposed
     from repro_torch.data import synthetic_csl
@@ -222,9 +257,40 @@ def phase_parity(dev):
     _check_level(st.masks, ctx.packed_t_pad(), st.terms, st.valid,
                  st.visited, MID_TERMS, TOPK, True)
     cases += 2
+    # co-occurrence counts: ragged and whole tiles, then a real row block
+    # of the mid index against its dense incidence
+    for d, vl, vr in [(33, 17, 9), (300, 200, 100), (1024, 128, 256)]:
+        xl = torch.from_numpy((rng.random((vl, d)) < 0.15).astype(np.int8)
+                              ).to(dev).t()
+        xr = torch.from_numpy((rng.random((vr, d)) < 0.15).astype(np.int8)
+                              ).to(dev).t()
+        if not torch.equal(ops.cooccur_counts(xl, xr),
+                           ref.cooccur_counts_ref(xl, xr)):
+            raise AssertionError(f"cooccur kernel != plain at {(d, vl, vr)}")
+        cases += 1
+    xl = unpack_bitmap(ctx.packed_t_pad()[:ROW_TILE, :ctx.index.n_words],
+                       torch.int8).t()
+    if not torch.equal(ops.cooccur_counts(xl, ctx.x_dense()),
+                       ref.cooccur_counts_ref(xl, ctx.x_dense())):
+        raise AssertionError("cooccur kernel != plain at a mid row block")
+    cases += 1
     say("parity", cases=cases, exact=True,
         mid_rows=st.masks.shape[0], mid_words=ctx.index.n_words,
         mid_terms=MID_TERMS)
+
+    # the whole mid-size network, through the kernel and the registry
+    nets = {}
+    for method in ("pallas", "gemm", "popcount", "fused"):
+        t0 = time.perf_counter()
+        nets[method] = materialize(ctx, k=MAT_K, method=method)
+        torch.cuda.synchronize()
+        say("parity", materialize=method,
+            seconds=f"{time.perf_counter() - t0:.3f}")
+    for method in ("gemm", "popcount", "fused"):
+        if not same_network(nets[method], nets["pallas"]):
+            raise AssertionError(f"mid materialize: {method} != pallas")
+    say("parity", materialize_methods=4, identical=True,
+        edges=nets["pallas"].num_edges())
 
     # the plain methods at the mid size, held against the host oracle
     hidx = build_host_index(docs, MID_TERMS)
@@ -248,7 +314,6 @@ def phase_parity(dev):
         say("parity", method=method, queries=len(qseeds), oracle_checked=4,
             batch_s=f"{secs:.4f}", **extra)
     # a mid-size yardstick: one bf16 matmul of the unpacked operands
-    from repro_torch.core import unpack_bitmap
     x16 = unpack_bitmap(ctx.index.packed.T.contiguous(),
                         torch.bfloat16).T.contiguous()
     m16 = unpack_bitmap(st.masks, torch.bfloat16)
@@ -271,6 +336,13 @@ def phase_strings(dev):
     want = {(lex.id_to_term[a], lex.id_to_term[b]): w
             for (a, b), w in oracle_edges(hidx, [lex.lookup("networks")],
                                           2, 6, 8).items()}
+    # the whole network: each term's top 4 by exact count, lower id on ties
+    want_full = {}
+    for t in range(len(lex)):
+        for j, c in oracle_row(hidx, t, 4):
+            key = (lex.id_to_term[min(t, j)], lex.id_to_term[max(t, j)])
+            want_full[key] = c
+    nodes = {term for key in want_full for term in key}
     ops.reset_launches()
     for method in ("gemm", "popcount", "pallas", "fused"):
         idx = CoocIndex.from_texts(QUICKSTART, device=dev, depth=2, topk=6,
@@ -278,15 +350,23 @@ def phase_strings(dev):
         edges = idx.network(["networks"])
         if edges != want:
             raise AssertionError(f"quickstart network ({method}) != oracle")
+        if idx.full_network(k=4) != want_full:
+            raise AssertionError(f"quickstart full network ({method}) != "
+                                 "oracle")
+        stats = idx.network_stats(k=4)
+        if (stats.n_edges, stats.n_nodes, stats.total_weight) != (
+                len(want_full), len(nodes), sum(want_full.values())):
+            raise AssertionError(f"quickstart network stats ({method}) != "
+                                 f"oracle: {stats[:8]}")
         idx.add_documents(["inverted index networks accelerate retrieval"] * 2)
         grown = idx.network(["accelerate"], depth=1)
         if grown.get(("networks", "accelerate")) != 2:
             raise AssertionError(f"ingest not visible ({method}): {grown}")
     launches = dict(ops.LAUNCHES)
-    if launches["postings_counts"] == 0 or launches["level_step"] == 0:
+    if not all(launches.values()):
         raise AssertionError(f"a kernel was not launched: {launches}")
-    say("strings", methods=4, edges=len(want), oracle=True,
-        ingest_visible=True, launches=json.dumps(launches))
+    say("strings", methods=4, edges=len(want), full_edges=len(want_full),
+        oracle=True, ingest_visible=True, launches=json.dumps(launches))
 
 
 def phase_csl(dev):
@@ -365,7 +445,75 @@ def phase_csl(dev):
             oracle_matched=N_ORACLE)
     say("csl", max_memory_allocated_gb=
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    return ctx, seeds, launches
+    return ctx, hidx, seeds, launches
+
+
+def phase_materialize(dev, ctx, hidx, launches):
+    """The whole CSL network at full width: top-16 for each of the 65,536
+    terms over all 396,209 docs, through the kernel (one launch per
+    128-term row block) and through ``torch._int_mm`` (method "gemm")."""
+    import torch
+    from repro_torch.core import global_statistics, materialize
+    from repro_torch.kernels import ops
+
+    v = ctx.vocab_size
+    t0 = time.perf_counter()
+    xd = ctx.x_dense()
+    torch.cuda.synchronize()
+    say("materialize", x_dense_s=f"{time.perf_counter() - t0:.3f}",
+        x_dense_gb=f"{xd.numel() / 1e9:.3f}", x_dense_shape=tuple(xd.shape),
+        x_dense_strides=xd.stride(), unpack_count=ctx.unpack_count)
+
+    n_blocks = -(-v // ROW_TILE)
+    nets, secs = {}, {}
+    for method in ("pallas", "gemm"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        nets[method] = materialize(ctx, k=MAT_K, method=method,
+                                   row_tile=ROW_TILE, use_cache=False)
+        torch.cuda.synchronize()
+        secs[method] = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if method == "pallas":
+            if counts["cooccur_counts"] != n_blocks:
+                raise AssertionError(f"{counts['cooccur_counts']} cooccur "
+                                     f"launches for {n_blocks} row blocks")
+            launches["cooccur_counts"] = counts["cooccur_counts"]
+        if extra_gb > xd.numel() / 2e9:
+            # a copy of the 26 GB operand would show here
+            raise AssertionError(f"method {method} took {extra_gb:.1f} GB "
+                                 "beyond the resident artifacts")
+        say("materialize", method=method, k=MAT_K, row_blocks=n_blocks,
+            seconds=f"{secs[method]:.3f}",
+            rows_per_s=f"{v / secs[method]:.1f}",
+            launches=json.dumps(counts), transient_gb=f"{extra_gb:.3f}")
+    if not same_network(nets["pallas"], nets["gemm"]):
+        raise AssertionError("CSL materialize: pallas != gemm")
+
+    df = ctx.index.doc_freq.cpu().numpy()
+    rng = np.random.default_rng(1)
+    head = rng.choice(np.argsort(-df, kind="stable")[:256],
+                      N_ROWS_CHECKED // 2, replace=False)
+    tail_pool = np.flatnonzero((df >= 1) & (df <= 64))
+    tail = rng.choice(tail_pool, min(N_ROWS_CHECKED // 2, len(tail_pool)),
+                      replace=False)
+    t0 = time.perf_counter()
+    for t in [int(x) for x in np.concatenate([head, tail])]:
+        if network_row(nets["pallas"], t, MAT_K) != oracle_row(hidx, t,
+                                                               MAT_K):
+            raise AssertionError(f"CSL materialized row {t} != host oracle")
+    oracle_s = time.perf_counter() - t0
+    stats = global_statistics(nets["pallas"], v)
+    say("materialize", identical=True, rows_checked=len(head) + len(tail),
+        oracle_s=f"{oracle_s:.2f}", nodes=stats.n_nodes,
+        edges=stats.n_edges, density=f"{stats.density:.6g}",
+        max_degree=stats.max_degree, max_weight=stats.max_weight,
+        max_memory_allocated_gb=
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
 
 def _bound(nonzero_words, active_words, out_bytes, mask_bytes, v, sms, hz):
@@ -421,20 +569,15 @@ def phase_kernels(dev, ctx, seeds, launches):
     bound_ms, bound_by, n_ops, n_bytes = _bound(
         nonzero_words, active_words, r * v * 4, r * w * 4, v, sms, hz)
     # yardstick (not used by the port): one int8 tensor-core product of the
-    # unpacked 0/1 operands, exact in int32 like the kernel; the (V, D)
-    # incidence is unpacked from the transposed postings 1,024 terms at a
-    # time and handed over column-major
-    torch.cuda.empty_cache()
-    x8 = torch.empty((v, w * 32), dtype=torch.int8, device=dev)
-    for v0 in range(0, v, 1024):
-        x8[v0:v0 + 1024] = unpack_bitmap(pt[v0:v0 + 1024, :w], torch.int8)
+    # unpacked 0/1 operands, exact in int32 like the kernel, against the
+    # context's column-major dense incidence
+    xd = ctx.x_dense()
     m8 = unpack_bitmap(st.masks, torch.int8)
-    lib = torch._int_mm(m8, x8.t())
+    lib = torch._int_mm(m8, xd)[:, :v]
     lib_err = int((lib - ops.postings_counts(st.masks, packed)).abs().max())
     del lib
-    lib_ms = cuda_ms(lambda: torch._int_mm(m8, x8.t()), 3)
-    del x8, m8
-    torch.cuda.empty_cache()
+    lib_ms = cuda_ms(lambda: torch._int_mm(m8, xd), 3)
+    del m8
     out.append({"name": "postings_counts", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/postings.cu",
                 "replaces": "src/repro/kernels/postings.py:37",
@@ -472,6 +615,43 @@ def phase_kernels(dev, ctx, seeds, launches):
     say("kernels", kernel="level_step", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, popcounts=n_ops, bytes=n_bytes)
+
+    # co-occurrence counts: the first CSL row block of materialization, its
+    # unpacked masks (ROW_TILE, D) against the whole dense incidence
+    x_l = unpack_bitmap(pt[:ROW_TILE, :w], torch.int8).t()
+    got = ops.cooccur_counts(x_l, xd)
+    lib = torch._int_mm(x_l.t(), xd)
+    err = int((got - lib).abs().max())
+    del lib
+    t0.record()
+    want = ref.cooccur_counts_ref(x_l, xd, chunk_bytes=2 << 30)
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError("cooccur kernel != _int_mm / plain at the CSL "
+                             "row block")
+    del got, want
+    ms = cuda_ms(lambda: ops.cooccur_counts(x_l, xd), 5)
+    lib_ms = cuda_ms(lambda: torch._int_mm(x_l.t(), xd), 5)
+    d, vp = xd.shape
+    n_ops = 2 * ROW_TILE * d * vp
+    n_bytes = ROW_TILE * d + d * vp + ROW_TILE * vp * 4
+    t_ops, t_bytes = n_ops / INT8_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    out.append({"name": "cooccur_counts", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/cooccur.cu",
+                "replaces": "src/repro/kernels/cooccur.py:36",
+                "launches": launches["cooccur_counts"], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms})
+    say("kernels", kernel="cooccur_counts", rows=ROW_TILE, docs=d,
+        terms=vp, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        plain_slice=f"all {vp} columns, float64, 2 GiB chunks",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, int8_ops=n_ops,
+        bytes=n_bytes, int8_mm_ms=f"{lib_ms:.4f}",
+        tops=f"{n_ops / ms / 1e9:.1f}")
     return out
 
 
@@ -490,7 +670,8 @@ def main() -> int:
     card = phase_device()
     phase_parity(dev)
     phase_strings(dev)
-    ctx, seeds, launches = phase_csl(dev)
+    ctx, hidx, seeds, launches = phase_csl(dev)
+    phase_materialize(dev, ctx, hidx, launches)
     kernels = phase_kernels(dev, ctx, seeds, launches)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)

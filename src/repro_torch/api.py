@@ -17,9 +17,14 @@ capacities grow on demand: the doc axis by repack on overflow
 Queries can be scoped to a source tag (``add_documents(source=...)``) or
 a trailing time bucket (``scope="7d"``).
 
-Not ported yet (``ROADMAP.md``): the sliding window, the cold tier, device
-meshes, whole-corpus materialization and snapshots; those arguments and
-methods raise ``NotImplementedError``.
+:meth:`CoocIndex.full_network` and :meth:`CoocIndex.network_stats` give the
+whole-corpus network (every term's top-``k`` neighbors) and its global
+statistics, exactly, through :func:`repro_torch.core.materialize`.
+
+Not ported yet (``ROADMAP.md``): the sliding window, the cold tier
+(``scope="all-time"``), device meshes, approximate materialization
+(``mode="approx"``) and snapshots; those arguments and methods raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,13 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 
 from repro_torch.core.inverted_index import Lexicon
+from repro_torch.core.materialize import materialize
+from repro_torch.core.network import (
+    CoocNetwork,
+    NetworkStats,
+    global_statistics,
+    to_edge_dict,
+)
 from repro_torch.core.query import QueryResult
 from repro_torch.core.query_context import (
     CapacityError,
@@ -248,13 +260,46 @@ class CoocIndex:
         id2t = self.lexicon.id_to_term
         return [(id2t[a], id2t[b], w) for a, b, w in res.top(limit)]
 
+    # -- whole-corpus network -----------------------------------------------
+
+    def _materialize(self, k: int, scope: Optional[str],
+                     now: Optional[float], method: Optional[str],
+                     mode: str, **kwargs) -> CoocNetwork:
+        # "all-time" is the cold-tier scope, not a tag: core.materialize
+        # refuses it (and mode="approx") until those are ported
+        name = scope if scope == "all-time" else self._resolve_scope(scope,
+                                                                      now)
+        return materialize(self.ctx, k=int(k),
+                           method=method or self.engine.method, scope=name,
+                           mode=mode, **kwargs)
+
+    def full_network(self, k: int = 8, *, scope: Optional[str] = None,
+                     now: Optional[float] = None,
+                     method: Optional[str] = None, mode: str = "exact",
+                     **kwargs) -> Dict[Tuple[str, str], int]:
+        """The CORPUS-level network: every indexed term's top-``k``
+        heaviest co-occurrence neighbors, as string edges
+        ``{(term_a, term_b): count}`` — the paper's whole-corpus artifact,
+        versus :meth:`network`'s seed-rooted neighborhood.  ``scope``
+        restricts it to a time bucket ("7d") or source tag exactly as in
+        :meth:`query`; ``method`` defaults to the engine's.  A warm context
+        (no ingest since the last call) serves the cached result."""
+        net = self._materialize(k, scope, now, method, mode, **kwargs)
+        id2t = self.lexicon.id_to_term
+        return {(id2t[a], id2t[b]): w
+                for (a, b), w in to_edge_dict(net).items()}
+
+    def network_stats(self, k: int = 8, *, scope: Optional[str] = None,
+                      now: Optional[float] = None,
+                      method: Optional[str] = None, mode: str = "exact",
+                      **kwargs) -> NetworkStats:
+        """Global statistics of the materialized corpus network (node and
+        edge counts, density, degree / weighted-degree distributions).
+        Same k/scope/method semantics as :meth:`full_network`."""
+        net = self._materialize(k, scope, now, method, mode, **kwargs)
+        return global_statistics(net, self.ctx.vocab_size)
+
     # -- not ported yet -----------------------------------------------------
-
-    def full_network(self, *args, **kwargs):
-        raise not_ported("whole-corpus materialization (full_network)")
-
-    def network_stats(self, *args, **kwargs):
-        raise not_ported("whole-corpus materialization (network_stats)")
 
     def save(self, *args, **kwargs):
         raise not_ported("snapshots (save)")

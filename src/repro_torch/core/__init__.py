@@ -1,6 +1,6 @@
 """The paper's core in PyTorch: the bit-packed inverted index, the BFS
-construction (Algorithm 3), the typed query surface and the query
-context.  Mirrors ``repro.core`` for the parts ported so far."""
+construction (Algorithm 3), the typed query surface, the query context
+and exact whole-corpus materialization.  Mirrors ``repro.core`` for the parts ported so far."""
 from repro_torch.core.inverted_index import (  # noqa: F401
     Lexicon,
     PackedIndex,
@@ -21,7 +21,11 @@ from repro_torch.core.inverted_index import (  # noqa: F401
 )
 from repro_torch.core.network import (  # noqa: F401
     CoocNetwork,
+    NetworkStats,
     canonical_pairs,
+    degree_histogram,
+    edge_jaccard,
+    global_statistics,
     merge_duplicates,
     nodes_of,
     to_edge_dict,
@@ -55,3 +59,4 @@ from repro_torch.core.cooccurrence import (  # noqa: F401
     construct,
     traversal_construct_host,
 )
+from repro_torch.core.materialize import materialize  # noqa: F401,E402

@@ -157,10 +157,31 @@ def _bits(words: torch.Tensor, axis: int) -> torch.Tensor:
     return (words.unsqueeze(axis) >> shifts) & 1
 
 
+#: terms unpacked per step of a dense incidence build: the step's int32
+#: bit intermediate is chunk x capacity x 4 bytes (1.6 GB at the CSL scale)
+DENSE_CHUNK_TERMS = 1024
+
+
+def _incidence_terms(index: PackedIndex, dtype, pad_to: int) -> torch.Tensor:
+    """The dense 0/1 incidence, term-major: (V_pad, capacity) with V padded
+    to a multiple of ``pad_to`` by zero rows, so each term's docs are
+    contiguous.  Unpacked ``DENSE_CHUNK_TERMS`` terms at a time from the
+    transposed postings, so no intermediate is larger than one chunk's
+    bits (never the (W, 32, V) int32 whole)."""
+    v, w = index.vocab_size, index.n_words
+    rows = index.packed.T
+    out = torch.zeros((v + (-v) % pad_to, w * 32), dtype=dtype,
+                      device=index.device)
+    for v0 in range(0, v, DENSE_CHUNK_TERMS):
+        v1 = min(v0 + DENSE_CHUNK_TERMS, v)
+        out[v0:v1] = unpack_bitmap(rows[v0:v1], dtype)
+    return out
+
+
 def incidence_dense(index: PackedIndex, dtype=torch.float32) -> torch.Tensor:
-    """Unpack to the dense incidence matrix X (capacity, V)."""
-    bits = _bits(index.packed, 1)                        # (W, 32, V)
-    return bits.reshape(index.n_words * 32, index.vocab_size).to(dtype)
+    """Unpack to the dense incidence matrix X (capacity, V): the ``.t()``
+    view of term-major storage, built in term chunks."""
+    return _incidence_terms(index, dtype, 1).t()
 
 
 # ---------------------------------------------------------------------------
@@ -198,20 +219,23 @@ _INT_MM_MIN_ROWS = 17
 
 
 def dense_operand(index: PackedIndex) -> torch.Tensor:
-    """The gemm method's operand: the 0/1 incidence as int8, (capacity,
-    V_pad) with V padded to a multiple of 8 by zero columns.  int8 holds
-    the reference's bf16 artifact in half the bytes."""
-    x = incidence_dense(index, torch.int8)
-    return torch.nn.functional.pad(x, (0, (-index.vocab_size) % 8))
+    """The dense operand of the gemm method and of the co-occurrence
+    kernel: the 0/1 incidence as int8, logical shape (capacity, V_pad)
+    with V padded to a multiple of 8 by zero columns.  It is the ``.t()``
+    view of term-major (V_pad, capacity) storage, so the doc axis (the
+    products' contraction axis) is contiguous.  int8 holds the reference's
+    bf16 artifact in half the bytes."""
+    return _incidence_terms(index, torch.int8, 8).t()
 
 
 def doc_freq_under_batch_gemm(masks: torch.Tensor,
                               x_dense: torch.Tensor) -> torch.Tensor:
     """counts = unpack(masks) @ X, (B, D) x (D, V_pad) -> (B, V_pad) int32.
 
-    ``x_dense`` is :func:`dense_operand`.  The product accumulates in
-    int32 (``torch._int_mm``), exact at any D; the rows are padded to the
-    GEMM's minimum and sliced off."""
+    ``x_dense`` is :func:`dense_operand`, handed to the GEMM as the
+    column-major view it is (no copy).  The product accumulates in int32
+    (``torch._int_mm``), exact at any D; the rows are padded to the GEMM's
+    minimum and sliced off."""
     b = masks.shape[0]
     m = unpack_bitmap(masks, torch.int8)
     m = torch.nn.functional.pad(m, (0, 0, 0, max(0, _INT_MM_MIN_ROWS - b)))

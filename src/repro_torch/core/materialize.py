@@ -1,0 +1,184 @@
+"""Whole-corpus network materialization (the paper's whole-corpus artifact).
+
+Mirrors ``repro.core.materialize`` in its exact mode.  The BFS query path
+serves seed-rooted neighborhoods; the whole network is every term's
+top-``k`` heaviest co-occurrence neighbors.  The (V, V) count matrix is
+never allocated: rows are swept in blocks of ``row_tile`` terms, a
+block's filter bitmaps are its postings rows (AND a scope bitmap, if any),
+so ``C[i, j] = popcount(post_i & scope & post_j)`` over exactly the scoped
+documents, and each block's (row_tile, V) counts reduce to (row_tile, k)
+before the next block starts.
+
+Counts come from ``method=``:
+
+* ``"pallas"`` — the hand-written int8 tensor-core co-occurrence kernel
+  (``kernels.ops.cooccur_counts``): one launch per row block, the block's
+  unpacked masks against the whole dense incidence (``x_dense``).  The
+  reference streams column tiles through a running top-k merge instead;
+  one exact top-k over the block's counts gives the same values and tie
+  order (the reference's own docstring says the two orders agree);
+* ``"gemm"``, ``"popcount"``, ``"fused"`` and any registered method — the
+  count-method registry, one call per row block.
+
+Either way the top-k is exact ``lax.top_k`` order (ties to the lower term
+id), self-pairs are excluded and zero counts emit no edge.  With a
+:class:`QueryContext` the dense incidence and the transposed postings are
+the context's epoch artifacts, and the finished network is cached per
+(k, method, scope, row tile), invalidated by an ingest or a scope
+redefinition.
+
+Not ported yet (``ROADMAP.md``): ``mode="approx"`` (sketches),
+``scope="all-time"`` (the cold tier), ``mesh=`` and the sharded
+strategies; each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.cooccurrence import _resolve_operands, chunked_top_k
+from repro_torch.core.inverted_index import (
+    PackedIndex,
+    dense_operand,
+    from_uint32,
+    unpack_bitmap,
+)
+from repro_torch.core.network import CoocNetwork
+from repro_torch.core.query import get_count_method
+from repro_torch.core.query_context import QueryContext, not_ported
+from repro_torch.kernels import ops
+
+
+def _round_up(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
+                scope_mask: Optional[torch.Tensor], operands, r0: int, *,
+                k: int, bm: int, method: str):
+    """Top-k neighbors of terms ``[r0, r0 + bm)``: (weights, ids), both
+    (bm, k), weight -1 marking empty slots.  ``rows`` is the (V, W)
+    transposed postings; rows past V have all-zero masks."""
+    v = pidx.vocab_size
+    masks = rows.new_zeros((bm, rows.shape[1]))
+    blk = rows[r0:r0 + bm]
+    masks[:blk.shape[0]] = blk
+    if scope_mask is not None:
+        masks &= scope_mask[None, :]
+    if method == "pallas":
+        x_l = unpack_bitmap(masks, torch.int8).t()              # (D, bm)
+        counts = ops.cooccur_counts(x_l, operands["x_dense"])[:, :v]
+    else:
+        counts = get_count_method(method).fn(pidx, masks, operands)
+    # self pairs; a pad row's entry is sliced off with its row
+    dev = counts.device
+    terms = torch.arange(r0, r0 + bm, device=dev).clamp(max=v - 1)
+    counts = counts.index_put(
+        (torch.arange(bm, device=dev), terms),
+        torch.tensor(-1, dtype=counts.dtype, device=dev))
+    return chunked_top_k(counts, k)
+
+
+def materialize(index, *, k: int = 8, method: str = "gemm",
+                scope: Optional[str] = None, scope_mask=None,
+                row_tile: int = 128, use_cache: bool = True, mesh=None,
+                shard_strategy: str = "auto",
+                mode: str = "exact") -> CoocNetwork:
+    """Materialize the corpus co-occurrence network, top-``k`` per term.
+
+    index: a PackedIndex, or a QueryContext (cached artifacts + result
+    caching).  method: ``"pallas"`` runs the co-occurrence kernel; any
+    registered count method runs through the registry.  scope: a context
+    scope NAME (time bucket, source tag); scope_mask: an explicit (W,) doc
+    bitmap, uint32 numpy or an int32 bit-pattern tensor (mutually
+    exclusive with ``scope``).  Either way the result is exactly the
+    network of an index holding only the scoped documents.
+
+    Returns a :class:`CoocNetwork` with ``V * k`` edge slots — slot
+    ``i*k + j`` is term ``i``'s j-th heaviest neighbor (``src=i``), ties
+    broken toward the lower term id, self-pairs and zero counts invalid
+    (dst -1, weight 0).  Beyond the cached incidence and this O(V·k)
+    result, the peak transient is one row block's (row_tile, V) counts.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if method != "pallas":
+        get_count_method(method)           # unknown method -> ValueError
+    if scope is not None and scope_mask is not None:
+        raise ValueError("pass scope= (a context scope name) OR scope_mask= "
+                         "(an explicit bitmap), not both")
+    ctx = index if isinstance(index, QueryContext) else None
+    if scope is not None and ctx is None:
+        raise ValueError(
+            f"scope={scope!r} needs a QueryContext to resolve the scope "
+            "name to a document bitmap; got a bare index")
+    if shard_strategy not in ("auto", "rows", "cols"):
+        raise ValueError(f"shard_strategy must be 'auto', 'rows' or 'cols', "
+                         f"got {shard_strategy!r}")
+    if mode not in ("exact", "approx"):
+        raise ValueError(f"mode must be 'exact' or 'approx', got {mode!r}")
+    if mode == "approx":
+        raise not_ported("approximate materialization (mode='approx')")
+    if mesh is not None or shard_strategy != "auto":
+        raise not_ported("sharded materialization (mesh=, shard_strategy=)")
+    if scope == "all-time":
+        raise not_ported("the cold tier (scope='all-time')")
+
+    pidx = ctx.index if ctx is not None else index
+    v, w = pidx.vocab_size, pidx.n_words
+    # shrink the row tile toward tiny vocabularies
+    bm = min(row_tile, _round_up(v, 8))
+
+    cache_key = None
+    cache_ver = 0
+    if ctx is not None and use_cache and (scope is not None
+                                          or scope_mask is None):
+        # versioned by (epoch, scope_version): a redefined scope misses
+        # and the new store overwrites the superseded network
+        cache_key = ("materialize", k, method, scope, bm)
+        cache_ver = ctx.scope_version(scope) if scope is not None else 0
+        hit = ctx.cached_artifact(cache_key, cache_ver)
+        if hit is not None:
+            return hit
+
+    if ctx is not None:
+        # the mask rows are the fused level step's padded transpose: no
+        # second transposed copy of the postings
+        rows = ctx.packed_t_pad()[:v, :w]
+    else:
+        rows = pidx.packed.T
+    if method == "pallas":
+        operands = {"x_dense": ctx.x_dense() if ctx is not None
+                    else dense_operand(pidx)}
+    else:
+        _, operands = _resolve_operands(index, method, None)
+    if scope is not None:
+        scope_mask = ctx.scope(scope)
+    elif scope_mask is not None:
+        if not isinstance(scope_mask, torch.Tensor):
+            scope_mask = from_uint32(scope_mask, pidx.device)
+        scope_mask = scope_mask.to(device=pidx.device, dtype=torch.int32)
+        if tuple(scope_mask.shape) != (w,):
+            raise ValueError(f"scope_mask shape {tuple(scope_mask.shape)} != "
+                             f"({w},) (one uint32 per 32 doc slots)")
+
+    ws, ids = [], []
+    for r0 in range(0, _round_up(v, bm), bm):
+        w_b, i_b = _block_topk(pidx, rows, scope_mask, operands, r0, k=k,
+                               bm=bm, method=method)
+        ws.append(w_b)
+        ids.append(i_b)
+    run_w = torch.cat(ws)[:v]                                   # (V, k)
+    run_i = torch.cat(ids)[:v].to(torch.int32)
+    valid = run_w > 0
+    net = CoocNetwork(
+        src=torch.arange(v, dtype=torch.int32,
+                         device=run_w.device).repeat_interleave(k),
+        dst=torch.where(valid, run_i, -1).reshape(-1),
+        weight=torch.where(valid, run_w, 0).reshape(-1),
+        valid=valid.reshape(-1),
+    )
+    if cache_key is not None:
+        ctx.store_artifact(cache_key, net, cache_ver)
+    return net

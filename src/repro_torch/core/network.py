@@ -2,8 +2,10 @@
 
 Mirrors ``repro.core.network``: device-side networks are fixed-shape
 (padded slots plus a validity mask); the host helpers turn them into the
-``{(min, max): weight}`` dict every slice of the port is compared on.  The
-fields may be tensors (device results) or numpy arrays (served results).
+``{(min, max): weight}`` dict every slice of the port is compared on, and
+the whole-network statistics (``global_statistics``, ``degree_histogram``,
+``edge_jaccard``), host numpy code copied from the reference.  The fields
+may be tensors (device results) or numpy arrays (served results).
 """
 from __future__ import annotations
 
@@ -95,6 +97,16 @@ def to_edge_dict(net: CoocNetwork) -> Dict[Tuple[int, int], int]:
                     w[first].tolist()))
 
 
+def edge_jaccard(n1: CoocNetwork, n2: CoocNetwork) -> float:
+    """Jaccard similarity of undirected edge sets (depth-insensitivity metric,
+    paper §3.2 / Fig. 5)."""
+    e1 = set(to_edge_dict(n1))
+    e2 = set(to_edge_dict(n2))
+    if not e1 and not e2:
+        return 1.0
+    return len(e1 & e2) / max(1, len(e1 | e2))
+
+
 def to_edge_index(net: CoocNetwork) -> Tuple[np.ndarray, np.ndarray]:
     """(2, E) int32 undirected edge index + (E,) weights, symmetrised."""
     d = to_edge_dict(net)
@@ -105,6 +117,67 @@ def to_edge_index(net: CoocNetwork) -> Tuple[np.ndarray, np.ndarray]:
     ei = np.concatenate([pairs, pairs[::-1]], axis=1)
     ew = np.concatenate([w, w])
     return ei, ew
+
+
+class NetworkStats(NamedTuple):
+    """Global (whole-network) statistics — the figures the paper's
+    downstream consumers report (degree distribution, density; Margan et
+    al., PAPERS.md).  Degrees are over the UNIQUE undirected edge set."""
+
+    n_nodes: int                 # terms with >= 1 incident edge
+    n_edges: int                 # unique undirected edges
+    density: float               # 2E / (N (N - 1))
+    mean_degree: float           # 2E / N
+    max_degree: int
+    mean_weighted_degree: float  # mean over connected nodes
+    max_weight: int              # heaviest edge
+    total_weight: int            # sum of unique undirected edge weights
+    degree: np.ndarray           # (vocab,) int64 per-term degree
+    weighted_degree: np.ndarray  # (vocab,) int64 per-term weight sum
+
+
+def global_statistics(net: CoocNetwork, vocab_size: int) -> NetworkStats:
+    """Compute :class:`NetworkStats` for ``net`` (host-side, vectorised).
+
+    Edges are canonicalised + deduped first (``to_edge_dict`` semantics),
+    so a materialized top-k network — where (a, b) and (b, a) both appear
+    when each is in the other's top-k — counts every undirected edge once.
+    """
+    d = to_edge_dict(net)
+    deg = np.zeros((vocab_size,), np.int64)
+    wdeg = np.zeros((vocab_size,), np.int64)
+    if d:
+        pairs = np.array(list(d.keys()), np.int64)        # (E, 2)
+        w = np.array(list(d.values()), np.int64)          # (E,)
+        np.add.at(deg, pairs[:, 0], 1)
+        np.add.at(deg, pairs[:, 1], 1)
+        np.add.at(wdeg, pairs[:, 0], w)
+        np.add.at(wdeg, pairs[:, 1], w)
+    n = int((deg > 0).sum())
+    e = len(d)
+    return NetworkStats(
+        n_nodes=n,
+        n_edges=e,
+        density=(2.0 * e / (n * (n - 1))) if n > 1 else 0.0,
+        mean_degree=(2.0 * e / n) if n else 0.0,
+        max_degree=int(deg.max()) if n else 0,
+        mean_weighted_degree=(float(wdeg[deg > 0].mean()) if n else 0.0),
+        max_weight=int(max(d.values())) if d else 0,
+        total_weight=int(sum(d.values())),
+        degree=deg,
+        weighted_degree=wdeg,
+    )
+
+
+def degree_histogram(stats: NetworkStats) -> np.ndarray:
+    """h[g] = #connected nodes with degree g (the degree-distribution
+    figure); h[0] counts nothing (isolated terms are not nodes)."""
+    deg = stats.degree[stats.degree > 0]
+    if deg.size == 0:
+        return np.zeros((1,), np.int64)
+    h = np.bincount(deg)
+    h[0] = 0
+    return h
 
 
 def nodes_of(net: CoocNetwork) -> List[int]:

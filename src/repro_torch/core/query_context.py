@@ -4,7 +4,9 @@ Mirrors ``repro.core.query_context`` in append mode: the context owns the
 packed index on one device and builds its derived artifacts lazily, once
 per ingest epoch —
 
-* ``x_dense()``      the dense int8 incidence (the gemm method's operand);
+* ``x_dense()``      the dense int8 incidence (the gemm method's and the
+  co-occurrence kernel's operand), stored term-major and built in term
+  chunks; ``unpack_count`` counts its builds;
 * ``packed_t()``     the transposed postings (V, W);
 * ``packed_t_pad()`` the transposed postings padded to V % 8 == 0 and
   W % 128 == 0, the fused level step's operand (padded here, once per
@@ -74,6 +76,7 @@ class QueryContext:
                                   index.doc_freq.to(self.device),
                                   int(index.n_docs))
         self.epoch = 0
+        self.unpack_count = 0   # monitoring: dense rebuilds == ingest epochs
         self._cache: Dict[str, Tuple[int, torch.Tensor]] = {}
         # generic epoch-versioned artifact cache: key -> (epoch, version, value)
         self._artifact_cache: Dict[Tuple, Tuple[int, int, object]] = {}
@@ -196,9 +199,12 @@ class QueryContext:
 
     def x_dense(self) -> torch.Tensor:
         """Dense int8 incidence X (capacity, V_pad), V padded to a
-        multiple of 8, unpacked once per epoch (``dense_operand``)."""
-        return self._artifact("x_dense",
-                              lambda: dense_operand(self._index))
+        multiple of 8, unpacked once per epoch (``dense_operand``): the
+        ``.t()`` view of (V_pad, capacity) storage, doc axis contiguous."""
+        def build():
+            self.unpack_count += 1
+            return dense_operand(self._index)
+        return self._artifact("x_dense", build)
 
     def packed_t(self) -> torch.Tensor:
         """Transposed postings (V, W), cached per epoch."""

@@ -3,6 +3,8 @@
   postings    — bit-packed AND + popcount doc frequencies (method "pallas")
   level_step  — one fused BFS level: counts + masks + exact top-k
                 (method "fused")
+  cooccur     — int8 tensor-core co-occurrence counts x_l^T @ x_r
+                (materialize(method="pallas"))
 
 Use them through :mod:`repro_torch.kernels.ops` (device dispatch and launch
 counts); :mod:`repro_torch.kernels.ref` holds their plain PyTorch versions.

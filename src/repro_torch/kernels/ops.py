@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0}
+LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0,
+                             "cooccur_counts": 0}
 
 
 def reset_launches() -> None:
@@ -95,3 +96,42 @@ def level_step(masks: torch.Tensor, packed_t_pad: torch.Tensor,
         w = torch.nn.functional.pad(w, (0, pad), value=-1)
         i = torch.nn.functional.pad(i, (0, pad), value=0)
     return w, i
+
+
+def _doc_axis_contiguous(x: torch.Tensor, name: str) -> None:
+    if x.dtype != torch.int8:
+        raise TypeError(f"{name} must be int8 0/1 incidence, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name} must be (D, V), got shape {tuple(x.shape)}")
+    if x.shape[0] > 1 and x.stride(0) != 1:
+        raise ValueError(
+            f"{name} {tuple(x.shape)} has strides {x.stride()}: its doc axis "
+            "(dim 0) must be contiguous — pass the .t() view of a term-major "
+            "(V, D) tensor, as QueryContext.x_dense() is; cooccur_counts "
+            "never copies its operands")
+
+
+def cooccur_counts(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
+    """Integer co-occurrence counts ``C = x_l^T @ x_r`` as int32.
+
+    x_l (D, Vl) and x_r (D, Vr): int8 0/1 incidence, each the ``.t()`` view
+    of a term-major (V, D) tensor, so that the doc axis is contiguous ->
+    (Vl, Vr) int32, exact at any D.  Mirrors
+    ``repro.kernels.ops.cooccur_counts`` (whose operands are bf16).  Any
+    shape: the kernel masks the ragged edges, so nothing is padded."""
+    _doc_axis_contiguous(x_l, "x_l")
+    _doc_axis_contiguous(x_r, "x_r")
+    if x_l.shape[0] != x_r.shape[0]:
+        raise ValueError(f"x_l has {x_l.shape[0]} docs, x_r {x_r.shape[0]}")
+    if _on_cuda(x_l):
+        from repro_torch.kernels.cooccur import cooccur_counts_cuda
+        out = cooccur_counts_cuda(x_l.t(), x_r.t())
+        LAUNCHES["cooccur_counts"] += 1
+        return out
+    return ref.cooccur_counts_ref(x_l, x_r)
+
+
+def cooccur_gemm(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
+    """``C = x_l^T @ x_r`` as float32: the counts of :func:`cooccur_counts`
+    in the reference ``cooccur_gemm``'s output type."""
+    return cooccur_counts(x_l, x_r).to(torch.float32)

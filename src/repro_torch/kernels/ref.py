@@ -15,9 +15,10 @@ to a value whose sign bit is already clear, so the results are the
 unsigned ones bit for bit.
 
 The AND + popcount over a (B, W) x (W, V) pair materialises a (B, W, V)
-intermediate; both count functions walk V in chunks so that intermediate
-stays under ``chunk_bytes`` whatever the shapes.  Chunking changes no
-result: each column's count is computed whole inside one chunk.
+intermediate, and the co-occurrence product a float64 copy of its right
+operand; every count function walks its columns in chunks so that such an
+intermediate stays under ``chunk_bytes`` whatever the shapes.  Chunking
+changes no result: each column's count is computed whole inside one chunk.
 """
 from __future__ import annotations
 
@@ -59,6 +60,26 @@ def postings_counts_ref(masks: torch.Tensor, packed: torch.Tensor, *,
     for c0 in range(0, v, step):
         anded = masks[:, :, None] & packed[None, :, c0:c0 + step]
         out[:, c0:c0 + step] = popcount32(anded).sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def cooccur_counts_ref(x_l: torch.Tensor, x_r: torch.Tensor, *,
+                       chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """C = x_l^T @ x_r over 0/1 incidence: x_l (D, Vl), x_r (D, Vr) int8
+    -> (Vl, Vr) int32.
+
+    Integer ``mm`` does not exist on CUDA and float32 is exact only below
+    2^24 docs, so the product runs in float64 (exact for any D this system
+    holds), one chunk of ``x_r``'s columns at a time so that each chunk's
+    float64 copy stays under ``chunk_bytes``."""
+    d, vl = x_l.shape
+    vr = x_r.shape[1]
+    out = torch.empty((vl, vr), dtype=torch.int32, device=x_l.device)
+    lt = x_l.t().to(torch.float64)
+    step = max(1, chunk_bytes // max(1, 8 * d))
+    for c0 in range(0, vr, step):
+        rt = x_r[:, c0:c0 + step].to(torch.float64)
+        out[:, c0:c0 + step] = (lt @ rt).to(torch.int32)
     return out
 
 

@@ -4,7 +4,8 @@ port's isolation rules.
 The quickstart corpus goes through both facades (the port on
 ``device="cpu"``); term-string networks and top lists must be identical,
 before and after an ingest that grows the vocabulary, for every count
-method and for tag and duration scopes.  The isolation tests check that the
+method and for tag and duration scopes; so must the whole-corpus network
+and its statistics.  The isolation tests check that the
 port imports neither jax nor the reference package, and that its entry
 points refuse to fall back to the CPU when no card is present.
 """
@@ -12,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -76,6 +78,26 @@ def test_source_tags_and_time_scopes_match_reference():
         ours.add_documents(["x y"], source="7d")
 
 
+@pytest.mark.parametrize("method", ["gemm", "popcount", "pallas", "fused"])
+def test_full_network_and_stats_match_reference(method):
+    """The whole-corpus network and its statistics, unscoped and under a
+    tag and a duration scope, equal ``repro.api.CoocIndex``'s."""
+    ours = CoocIndex(device="cpu", method=method, **PLAN)
+    ref = JIndex(method=method, **PLAN)
+    for idx in (ours, ref):
+        idx.add_documents(QUICKSTART[:6], timestamp=1000.0, source="old")
+        idx.add_documents(QUICKSTART[6:] + FRESH, timestamp=5000.0)
+    for kw in ({"k": 4}, {"k": 2, "scope": "old"},
+               {"k": 3, "scope": "1h", "now": 5100.0}, {"k": 40}):
+        assert ours.full_network(**kw) == ref.full_network(**kw)
+        got, want = ours.network_stats(**kw), ref.network_stats(**kw)
+        for name, a, b in zip(want._fields, got, want):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    # the method argument overrides the engine's
+    assert ours.full_network(k=4, method="popcount") == \
+        ref.full_network(k=4, method="popcount")
+
+
 def test_rejected_batch_leaves_no_trace():
     idx = CoocIndex(device="cpu", capacity=32, on_overflow="raise")
     idx.add_documents(QUICKSTART)
@@ -91,11 +113,15 @@ def test_unported_surfaces_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CoocIndex(device="cpu", **kw)
     idx = CoocIndex(device="cpu")
-    for call in (idx.full_network, idx.network_stats, idx.save):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        idx.save()
     with pytest.raises(NotImplementedError):
         CoocIndex.load("somewhere")
+    idx.add_documents(QUICKSTART[:2])
+    for kw in ({"mode": "approx"}, {"scope": "all-time"}):
+        for call in (idx.full_network, idx.network_stats):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                call(**kw)
 
 
 _ISOLATION = """
@@ -104,6 +130,7 @@ sys.modules["jax"] = None          # any import of jax now raises
 import repro_torch, repro_torch.api, repro_torch.core, repro_torch.serve
 import repro_torch.kernels.build, repro_torch.kernels.postings
 import repro_torch.kernels.level_step, repro_torch.configs.cooccur_csl
+import repro_torch.kernels.cooccur, repro_torch.core.materialize
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "repro" or m.startswith(("repro.", "jax"))))
 print(leaked)

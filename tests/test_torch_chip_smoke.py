@@ -41,11 +41,12 @@ def smoke(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     sys.modules.pop("chip_smoke", None)
     import chip_smoke
-    from repro_torch.kernels import level_step, ops, postings, ref
+    from repro_torch.kernels import cooccur, level_step, ops, postings, ref
     for name, value in [
             ("Event", _Event), ("synchronize", lambda *a: None),
             ("reset_peak_memory_stats", lambda *a: None),
             ("max_memory_allocated", lambda *a: 0),
+            ("memory_allocated", lambda *a: 0),
             ("empty_cache", lambda: None),
             ("get_device_properties",
              lambda i: types.SimpleNamespace(multi_processor_count=132))]:
@@ -58,6 +59,9 @@ def smoke(monkeypatch):
     monkeypatch.setattr(postings, "postings_counts_cuda",
                         ref.postings_counts_ref)
     monkeypatch.setattr(level_step, "level_step_cuda", ref.level_step_ref)
+    # the launcher takes (M, K) and (N, K): the operands' .t() views
+    monkeypatch.setattr(cooccur, "cooccur_counts_cuda",
+                        lambda a, b: ref.cooccur_counts_ref(a.t(), b.t()))
     for name, value in [("CSL_DOCS", 1500), ("CSL_TERMS", 256),
                         ("MID_DOCS", 1024), ("MID_TERMS", 128),
                         ("N_QUERIES", 16)]:
@@ -69,17 +73,28 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     dev = torch.device("cpu")
     smoke.phase_parity(dev)
     smoke.phase_strings(dev)
-    ctx, seeds, launches = smoke.phase_csl(dev)
+    ctx, hidx, seeds, launches = smoke.phase_csl(dev)
     assert launches == {"level_step": 6, "postings_counts": 6}
+    smoke.phase_materialize(dev, ctx, hidx, launches)
+    assert launches["cooccur_counts"] == 2          # 256 terms / 128 a block
+    assert ctx.unpack_count == 1
     kernels = smoke.phase_kernels(dev, ctx, seeds, launches)
-    assert [k["name"] for k in kernels] == ["postings_counts", "level_step"]
+    assert [k["name"] for k in kernels] == ["postings_counts", "level_step",
+                                            "cooccur_counts"]
+    assert [k["launches"] for k in kernels] == [6, 6, 2]
     for k in kernels:
         assert set(k) == KEYS
-        assert k["max_abs_err"] == 0 and k["launches"] == 6
+        assert k["max_abs_err"] == 0
         assert (ROOT / k["source"]).is_file()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
+    assert kernels[2]["bound_by"] == "bytes"
+    assert ctx.unpack_count == 1        # the yardsticks reuse x_dense
     out = capsys.readouterr().out
     assert "[csl] method=fused" in out and "[csl] method=pallas" in out
+    assert "[materialize] method=pallas" in out
+    assert "[materialize] method=gemm" in out
+    assert "[materialize] identical=True rows_checked=16" in out
+    assert "materialize_methods=4 identical=True" in out
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):

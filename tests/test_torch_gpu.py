@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels against their plain versions, on
-the card.  Every test here needs a CUDA device and skips without one; the
+the card, and the paths that run them (BFS methods, materialization).  Every test here needs a CUDA device and skips without one; the
 file imports no jax, so it runs on a GPU host that has none:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -103,3 +103,60 @@ def test_bfs_methods_agree_on_the_card(cuda):
                                         res.network.valid.to(torch.int32)])
         for method in ("popcount", "pallas", "fused"):
             assert torch.equal(nets[method], nets["gemm"]), (method, scope)
+
+
+def _incidence(rng, v, d, device, density=0.2):
+    """(v, d) term-major 0/1 int8 storage on ``device``."""
+    return torch.from_numpy((rng.random((v, d)) < density).astype(np.int8)
+                            ).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,vl,vr", [
+    (33, 17, 9),            # byte path: rows not 16-byte aligned
+    (300, 200, 100),        # byte path, ragged M and N tiles
+    (1024, 128, 256),       # 16-byte path, whole tiles
+    (4160, 130, 1000),      # 16-byte path, ragged M and N, long K
+])
+def test_cooccur_kernel_matches_plain(cuda, d, vl, vr):
+    rng = np.random.default_rng(d + vl + vr)
+    xl = _incidence(rng, vl, d, cuda).t()
+    xr = _incidence(rng, vr, d, cuda).t()
+    before = ops.LAUNCHES["cooccur_counts"]
+    got = ops.cooccur_counts(xl, xr)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cooccur_counts"] == before + 1
+    assert torch.equal(got, ref.cooccur_counts_ref(xl, xr))
+
+
+@pytest.mark.gpu
+def test_cooccur_kernel_ragged_k_inside_aligned_rows(cuda):
+    """K = 50 docs inside rows 64 bytes apart: the 16-byte copies must read
+    only the 50 docs (the bytes past K in each row are nonzero here)."""
+    rng = np.random.default_rng(8)
+    a = torch.ones((70, 64), dtype=torch.int8, device=cuda)
+    b = torch.ones((300, 64), dtype=torch.int8, device=cuda)
+    a[:, :50] = _incidence(rng, 70, 50, cuda, 0.5)
+    b[:, :50] = _incidence(rng, 300, 50, cuda, 0.5)
+    xl, xr = a[:, :50].t(), b[:, :50].t()
+    got = ops.cooccur_counts(xl, xr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.cooccur_counts_ref(xl, xr))
+
+
+@pytest.mark.gpu
+def test_materialize_methods_agree_on_the_card(cuda):
+    """The whole-corpus network through the kernel equals the registry
+    methods' on the card, scoped and unscoped."""
+    from repro_torch.core import materialize
+    docs = synthetic_csl(3000, 700, seed=4)
+    ctx = QueryContext.from_docs(docs, 700, device=cuda)
+    ctx.tag_scope("half", np.arange(0, 3000, 2))
+    for scope in (None, "half"):
+        before = ops.LAUNCHES["cooccur_counts"]
+        want = materialize(ctx, k=8, method="pallas", scope=scope)
+        assert ops.LAUNCHES["cooccur_counts"] == before + 6   # 700 / 128
+        for method in ("gemm", "popcount", "fused"):
+            net = materialize(ctx, k=8, method=method, scope=scope)
+            for a, b in zip(net, want):
+                assert torch.equal(a, b), (method, scope)

@@ -121,6 +121,26 @@ def test_index_algebra_matches_reference():
         T.slots_bitmap([128], 4)
 
 
+@pytest.mark.parametrize("chunk", [1, 8, 1024])
+def test_dense_operand_is_term_major_and_chunked(chunk, monkeypatch):
+    """x_dense is the .t() view of (V_pad, D) storage (doc axis
+    contiguous), built a chunk of terms at a time; the values are the
+    reference's incidence whatever the chunk."""
+    from repro_torch.core import inverted_index
+    monkeypatch.setattr(inverted_index, "DENSE_CHUNK_TERMS", chunk)
+    docs = _docs(90, 37, seed=12)
+    t_idx = T.pack_docs(docs, 37, capacity=96, device="cpu")
+    want = np.asarray(J.incidence_dense(J.pack_docs(docs, 37, capacity=96)))
+    x = T.dense_operand(t_idx)
+    assert x.shape == (96, 40) and x.stride() == (1, 96)
+    assert x.t().is_contiguous()
+    np.testing.assert_array_equal(x[:, :37].numpy(), want)
+    assert not x[:, 37:].any()
+    dense = T.incidence_dense(t_idx)
+    assert dense.dtype == torch.float32 and dense.t().is_contiguous()
+    np.testing.assert_array_equal(dense.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # QueryContext
 # ---------------------------------------------------------------------------
@@ -161,6 +181,8 @@ def test_context_artifacts_match_reference():
     np.testing.assert_array_equal(x[:, :21].numpy(),
                                   np.asarray(j_ctx.x_dense(), np.int8))
     assert not x[:, 21:].any()
+    assert x.stride() == (1, 128)                # term-major storage
+    assert t_ctx.x_dense() is x and t_ctx.unpack_count == 1
     assert t_ctx.packed_t_pad() is pt            # cached within an epoch
     assert (t_ctx.full_mask() == -1).all()       # 0xFFFFFFFF as int32
     np.testing.assert_array_equal(to_uint32(t_ctx.full_mask()),

@@ -1,8 +1,9 @@
 """The port's kernel wrappers against the JAX reference's.
 
-On the CPU the port's ``ops.postings_counts`` / ``ops.level_step`` run
-their plain versions (``repro_torch.kernels.ref``); they must equal the
-reference's Pallas kernels (interpret mode) and its XLA fallbacks exactly,
+On the CPU the port's ``ops.postings_counts`` / ``ops.level_step`` /
+``ops.cooccur_counts`` run their plain versions
+(``repro_torch.kernels.ref``); they must equal the reference's Pallas
+kernels (interpret mode) and its XLA fallbacks exactly,
 values and tie order, on inputs drawn with numpy from a fixed seed.  The
 hand-written CUDA kernels are held against the plain versions in
 ``test_torch_gpu.py``, which needs a card and no jax.
@@ -202,3 +203,63 @@ def test_level_step_batch_major_equals_separate_queries(dedup):
                           visited[j], v=v, k=k, dedup=dedup, backend="xla")
         np.testing.assert_array_equal(got[0][rows], want[0])
         np.testing.assert_array_equal(got[1][rows], want[1])
+
+
+# ---------------------------------------------------------------------------
+# co-occurrence counts
+# ---------------------------------------------------------------------------
+
+
+def _doc_major(a):
+    """(D, V) 0/1 numpy -> the port's operand layout: the ``.t()`` view of
+    term-major (V, D) int8 storage, doc axis contiguous."""
+    return torch.from_numpy(np.ascontiguousarray(a.T, np.int8)).t()
+
+
+@pytest.mark.parametrize("d,vl,vr", [
+    (64, 32, 32), (512, 128, 128), (300, 200, 100), (1024, 128, 256),
+    (33, 17, 9),                       # ragged everything
+])
+def test_cooccur_counts_match_reference(d, vl, vr):
+    """int8 operands here, bf16 in the reference, the same 0/1 values:
+    counts and the float32 product are identical."""
+    rng = np.random.default_rng(d + vl)
+    xl = (rng.random((d, vl)) < 0.15).astype(np.float32)
+    xr = (rng.random((d, vr)) < 0.15).astype(np.float32)
+    jl, jr = jnp.asarray(xl, jnp.bfloat16), jnp.asarray(xr, jnp.bfloat16)
+    got = ops.cooccur_counts(_doc_major(xl), _doc_major(xr))
+    assert got.dtype == torch.int32 and got.shape == (vl, vr)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.cooccur_counts(jl, jr,
+                                                    backend="interpret")))
+    gemm = ops.cooccur_gemm(_doc_major(xl), _doc_major(xr))
+    assert gemm.dtype == torch.float32
+    np.testing.assert_array_equal(
+        gemm.numpy(), np.asarray(jops.cooccur_gemm(jl, jr, backend="interpret",
+                                                   bm=32, bn=32, bk=64)))
+
+
+def test_cooccur_counts_chunking_is_exact():
+    """A chunk budget of a single column gives the same counts."""
+    rng = np.random.default_rng(5)
+    xl = _doc_major((rng.random((70, 6)) < 0.4).astype(np.int8))
+    xr = _doc_major((rng.random((70, 45)) < 0.4).astype(np.int8))
+    assert torch.equal(ref.cooccur_counts_ref(xl, xr),
+                       ref.cooccur_counts_ref(xl, xr, chunk_bytes=1))
+
+
+def test_cooccur_counts_refuse_a_copy_or_a_wrong_type():
+    """The wrapper never copies: an operand whose doc axis is not
+    contiguous is an error, as is a non-int8 operand or a doc mismatch."""
+    x = _doc_major(np.ones((40, 8), np.int8))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.cooccur_counts(x.contiguous(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.cooccur_counts(x, x.contiguous())
+    with pytest.raises(TypeError, match="int8"):
+        ops.cooccur_counts(x.to(torch.float32), x)
+    with pytest.raises(ValueError, match="docs"):
+        ops.cooccur_counts(x, x[:39])
+    # one doc or one term: any stride of the unit axis is fine
+    one = torch.ones((1, 5), dtype=torch.int8)
+    assert (ops.cooccur_counts(one, one) == 1).all()

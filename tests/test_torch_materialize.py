@@ -1,0 +1,179 @@
+"""The port's whole-corpus materialization against the JAX reference.
+
+The same numpy corpora (fixed seeds) go through ``repro.core.materialize``
+and ``repro_torch.core.materialize`` on the CPU, for all four count
+methods; the ``V * k`` edge slots (src, dst, weight, valid) must be
+identical, as must the network statistics computed from them.  The
+reference's ``"pallas"`` runs its Pallas kernel in interpret mode, as its
+own tests run it; the port's runs the kernel's plain version.  Every
+comparison is exact: the counts are integers.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core as J  # noqa: E402
+import repro_torch.core as T  # noqa: E402
+from repro.core.materialize import materialize as j_materialize  # noqa: E402
+from repro_torch.core import materialize  # noqa: E402
+
+METHODS = ("gemm", "popcount", "pallas", "fused")
+
+
+def _corpus(n_docs, vocab, seed, flavor):
+    """Random docs; ``flavor`` forces a nasty shape:
+
+    * ``"ties"``: every doc holding term 2j holds 2j+1 too, so the two
+      postings columns are identical and every count against them ties;
+    * ``"empty"``: term ``vocab // 2`` never occurs;
+    * ``"zero_block"``: only terms below 128 occur, so the last row block
+      of a vocabulary above 128 has no postings at all."""
+    rng = np.random.default_rng(seed)
+    hi = min(vocab, 128) if flavor == "zero_block" else vocab
+    docs = []
+    for _ in range(n_docs):
+        d = rng.integers(0, hi, int(rng.integers(0, 9))).tolist()
+        if flavor == "ties":
+            d = d + [t + 1 for t in d if t % 2 == 0 and t + 1 < vocab]
+        if flavor == "empty":
+            d = [t for t in d if t != vocab // 2]
+        docs.append(d)
+    return docs
+
+
+def _slots(net):
+    return tuple(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+                 for x in net)
+
+
+def _same_net(ours, ref):
+    for got, want in zip(_slots(ours), _slots(ref)):
+        np.testing.assert_array_equal(got, want)
+
+
+def _contexts(docs, vocab):
+    return (T.QueryContext.from_docs(docs, vocab, device="cpu"),
+            J.QueryContext.from_docs(docs, vocab))
+
+
+@pytest.mark.parametrize("n_docs,vocab,flavor,ks", [
+    (1, 2, "plain", (1, 4)),             # one doc, k > V
+    (40, 9, "ties", (1, 4, 16)),         # forced ties, k > V
+    (120, 33, "empty", (4, 16, 40)),     # an empty term, k > V
+    (300, 130, "zero_block", (4, 16)),   # an all-zero row block
+    (200, 64, "plain", (1, 16)),
+])
+@pytest.mark.parametrize("method", METHODS)
+def test_materialize_matches_reference(n_docs, vocab, flavor, ks, method):
+    docs = _corpus(n_docs, vocab, seed=n_docs + vocab, flavor=flavor)
+    t_ctx, j_ctx = _contexts(docs, vocab)
+    for k in ks:
+        net = materialize(t_ctx, k=k, method=method)
+        assert net.src.shape == (vocab * k,)
+        _same_net(net, j_materialize(j_ctx, k=k, method=method))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_scoped_materialize_matches_reference(method):
+    docs = _corpus(150, 40, seed=5, flavor="plain")
+    t_ctx, j_ctx = _contexts(docs, 40)
+    for ctx in (t_ctx, j_ctx):
+        ctx.tag_scope("odd", np.arange(1, 150, 2))
+    _same_net(materialize(t_ctx, k=5, method=method, scope="odd"),
+              j_materialize(j_ctx, k=5, method=method, scope="odd"))
+    bits = T.slots_bitmap(np.arange(0, 150, 3), t_ctx.index.n_words)
+    _same_net(materialize(t_ctx, k=5, method=method, scope_mask=bits),
+              j_materialize(j_ctx, k=5, method=method,
+                            scope_mask=jnp.asarray(bits)))
+    # a tensor bitmap is taken as well as a uint32 array
+    _same_net(materialize(t_ctx, k=5, method=method,
+                          scope_mask=T.from_uint32(bits, "cpu")),
+              j_materialize(j_ctx, k=5, method=method,
+                            scope_mask=jnp.asarray(bits)))
+
+
+def test_cache_warm_is_cold_and_ingest_invalidates():
+    docs = _corpus(80, 20, seed=6, flavor="plain")
+    t_ctx, j_ctx = _contexts(docs, 20)
+    cold = {m: materialize(t_ctx, k=4, method=m) for m in METHODS}
+    for m in METHODS:
+        assert materialize(t_ctx, k=4, method=m) is cold[m]    # warm hit
+    assert t_ctx.unpack_count <= 1          # one dense build in all
+    assert materialize(t_ctx, k=4, method="gemm", use_cache=False) \
+        is not cold["gemm"]
+    t_ctx.tag_scope("s", [0, 1, 2])
+    scoped = materialize(t_ctx, k=4, method="popcount", scope="s")
+    assert materialize(t_ctx, k=4, method="popcount", scope="s") is scoped
+    t_ctx.tag_scope("s", [3])               # redefinition: a miss
+    assert materialize(t_ctx, k=4, method="popcount", scope="s") \
+        is not scoped
+    fresh = [[0, 1, 2], [1, 2], [0, 19]]
+    t_ctx.ingest_docs(fresh)
+    j_ctx.ingest_docs(fresh)
+    for m in METHODS:
+        net = materialize(t_ctx, k=4, method=m)
+        assert net is not cold[m]
+        _same_net(net, j_materialize(j_ctx, k=4, method=m))
+    assert t_ctx.unpack_count == 2          # rebuilt once for the new epoch
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_bare_index_matches_reference(method):
+    docs = _corpus(90, 21, seed=7, flavor="ties")
+    t_net = materialize(T.pack_docs(docs, 21, device="cpu"), k=3,
+                        method=method)
+    _same_net(t_net, j_materialize(J.pack_docs(docs, 21), k=3,
+                                   method=method))
+
+
+def test_row_tile_does_not_change_the_network():
+    docs = _corpus(100, 50, seed=8, flavor="plain")
+    t_ctx, _ = _contexts(docs, 50)
+    want = materialize(t_ctx, k=6, method="pallas")
+    for row_tile in (8, 24, 1000):
+        _same_net(materialize(t_ctx, k=6, method="pallas",
+                              row_tile=row_tile), want)
+
+
+def test_statistics_match_reference():
+    from repro.core.network import (degree_histogram as j_hist,
+                                    edge_jaccard as j_jaccard,
+                                    global_statistics as j_stats)
+    docs = _corpus(200, 48, seed=9, flavor="ties")
+    t_ctx, j_ctx = _contexts(docs, 48)
+    t_nets = [materialize(t_ctx, k=k, method="pallas") for k in (2, 6)]
+    j_nets = [j_materialize(j_ctx, k=k, method="pallas") for k in (2, 6)]
+    for t_net, j_net in zip(t_nets, j_nets):
+        got, want = T.global_statistics(t_net, 48), j_stats(j_net, 48)
+        assert got._fields == want._fields
+        for name, a, b in zip(got._fields, got, want):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(T.degree_histogram(got), j_hist(want))
+    assert T.edge_jaccard(*t_nets) == j_jaccard(*j_nets)
+    assert T.edge_jaccard(t_nets[0], t_nets[0]) == 1.0
+    empty = materialize(T.QueryContext.from_docs([[]], 4, device="cpu"), k=2)
+    stats = T.global_statistics(empty, 4)
+    assert stats.n_edges == 0 and stats.density == 0.0
+    np.testing.assert_array_equal(T.degree_histogram(stats), [0])
+    assert T.edge_jaccard(empty, empty) == 1.0
+
+
+def test_argument_checks_and_unported_modes():
+    ctx = T.QueryContext.from_docs([[0, 1], [1, 2]], 3, device="cpu")
+    for kw, err in [({"k": 0}, "k must be"), ({"method": "nope"}, "unknown"),
+                    ({"scope": "a", "scope_mask": np.zeros(1, np.uint32)},
+                     "not both"),
+                    ({"shard_strategy": "diag"}, "shard_strategy"),
+                    ({"mode": "bogus"}, "mode must be"),
+                    ({"scope_mask": np.zeros(3, np.uint32)}, "shape")]:
+        with pytest.raises(ValueError, match=err):
+            materialize(ctx, **kw)
+    with pytest.raises(ValueError, match="QueryContext"):
+        materialize(ctx.index, scope="a")
+    for kw in ({"mode": "approx"}, {"scope": "all-time"},
+               {"mesh": object()}, {"shard_strategy": "rows"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            materialize(ctx, **kw)
