@@ -10,14 +10,17 @@ paper's query at the CSL scale (396,209 docs, 65,536 terms, depth 3, top-k
 16, beam 32, 8 queries per batch) through ``QueryContext`` and
 ``CoocEngine`` with the two BFS kernel methods, materializes the whole
 CSL network (top-16 per term) through the co-occurrence kernel, and checks
-the answers against the host oracle.  Phases:
+the answers against the host oracle.  Then it serves dlrm-rm2 at full size
+through the dot-interaction kernel and runs the flash-decode kernel at
+llama3-8b's decode cells.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
-  2. parity       the three kernels == their plain versions, exact, at
+  2. parity       the three CSL kernels == their plain versions, exact, at
                   small, ragged and mid shapes (2^15 docs x 2^13 terms,
                   256 rows, one 128-term row block); methods "gemm" and
                   "popcount" served, and all four methods materialized,
-                  at the mid size
+                  at the mid size; kernels 4 and 5 == their plain
+                  versions at odd shapes, within DOT_TOL / DECODE_TOL
   3. strings      the quickstart corpus through ``CoocIndex(device="cuda")``
                   for all four methods == the host oracle (queries, the
                   whole network and its statistics), then an ingest
@@ -25,8 +28,16 @@ the answers against the host oracle.  Phases:
   5. materialize  the whole CSL network, method "pallas" (the kernel) and
                   "gemm" (``torch._int_mm``): identical, 16 rows == the
                   host oracle
-  6. kernels      each kernel timed at the main path's shapes beside its
-                  plain version, its bound and a PyTorch yardstick
+  6. kernels      each CSL kernel timed at the main path's shapes beside
+                  its plain version, its bound and a PyTorch yardstick;
+                  then the CSL context is freed
+  7. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
+                  generator, served at serve_p99, serve_bulk and
+                  retrieval_cand through kernel 4, 64 rows of each held
+                  against float64; kernel 4 timed at each cell
+  8. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
+                  long_500k, ragged lengths (a 0 and a 1 among them) ==
+                  the plain version; then timed at full lengths
 
 Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
@@ -58,6 +69,26 @@ N_ORACLE = 8                   # queries per method held against the oracle
 MID_DOCS, MID_TERMS = 1 << 15, 1 << 13
 MAT_K, ROW_TILE = 16, 128      # materialization: top-k per term, row block
 N_ROWS_CHECKED = 16            # materialized CSL rows held against the oracle
+FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
+
+# dlrm-rm2 at full size, RECSYS_SHAPES' serving cells
+DLRM_VOCAB = 1_000_000         # rows per sparse field (the published size)
+SERVE_P99, SERVE_BULK, RETRIEVAL_CAND = 512, 262_144, 1_000_000
+N_P99_BATCHES, N_BULK_BATCHES = 50, 3
+N_DLRM_CHECKED = 64            # rows of each output held against float64
+# fp32 through seven layers against a float64 recomputation of the rows
+DLRM_RTOL, DLRM_ATOL = 1e-4, 1e-5
+
+# llama3-8b's attention widths at LM_SHAPES' decode cells: (B, S)
+DECODE_HEADS = (32, 8, 128)    # Hq, Hkv, d
+DECODE_SHAPES = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
+# fp32: the reference's tolerance.  bf16: both sides sum in fp32 from the
+# same inputs and round once to bf16, so they may differ by one bf16 step of
+# the output (at most 2^-7 of it), plus fp32 rounding, far under 1e-3 of the
+# row's rms.  (With randn inputs the softmax is nearly flat and |out| is
+# about sqrt(e / length), so an absolute 2e-2 would pass a kernel of zeros.)
+DECODE_TOL = {"float32": 2e-5, "bfloat16": "2^-7*|want|+1e-3*rms(row)"}
 
 QUICKSTART = [
     "graph neural networks learn node embeddings from graph structure",
@@ -200,6 +231,63 @@ def _check_level(masks, pt, terms, valid, visited, v, k, dedup):
                              f"dedup={dedup}")
 
 
+# kernel 4: fp32 sums in another order, 1e-5 (the reference's tolerance);
+# bf16 outputs rounded from sums that may differ in the last bit, one step
+DOT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _parity_dot(dev):
+    """Kernel 4 == its plain version at odd shapes: B not a multiple of the
+    8 samples a CTA takes, F 8/27/40/64, E 10/16/63/64/256, both dtypes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = 0
+    for b, f, e, dt in [(37, 27, 64, torch.float32), (1, 27, 64, torch.float32),
+                        (64, 8, 16, torch.float32), (256, 40, 10, torch.float32),
+                        (1001, 64, 256, torch.float32),
+                        (513, 27, 64, torch.bfloat16),
+                        (5, 27, 63, torch.bfloat16), (3, 2, 1, torch.float32)]:
+        x = torch.randn((b, f, e), generator=gen, device=dev).to(dt)
+        got, want = ops.dot_interaction(x), ref.dot_interaction_ref(x)
+        tol = DOT_TOL[str(dt).split(".")[-1]]
+        if got.shape != want.shape or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"dot_interaction kernel != plain at "
+                                 f"{(b, f, e, dt)}")
+        cases += 1
+    return cases
+
+
+def _parity_decode(dev):
+    """Kernel 5 == its plain version: MQA, G = 16, d = 8 and 256, S not a
+    multiple of the 32-row tile, chunk above S, lengths 0 and 1, one row
+    split across many CTAs, both dtypes."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = 0
+    for b, hq, hkv, d, s, chunk in [(2, 8, 2, 64, 512, 128),
+                                    (3, 16, 8, 128, 300, 128),
+                                    (2, 8, 1, 64, 1024, 256),
+                                    (2, 32, 2, 256, 100, 64),
+                                    (3, 2, 1, 8, 33, 512),
+                                    (1, 32, 8, 128, 20_000, 512)]:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for shape in ((b, hq, d), (b, s, hkv, d),
+                                     (b, s, hkv, d)))
+            ln = np.random.default_rng(s).integers(1, s + 1, b)
+            if b >= 3:
+                ln[:2] = 0, 1
+            ln = torch.from_numpy(ln.astype(np.int32)).to(dev)
+            _check_decode(ops.flash_decode(q, k, v, ln, chunk=chunk),
+                          ref.flash_decode_ref(q, k, v, ln, chunk=chunk), dt,
+                          f"{(b, hq, hkv, d, s, chunk)}")
+            cases += 1
+    return cases
+
+
 def phase_parity(dev):
     """Both kernels against their plain versions on the card; then the
     plain methods "gemm" and "popcount" served at the mid size."""
@@ -277,6 +365,9 @@ def phase_parity(dev):
     say("parity", cases=cases, exact=True,
         mid_rows=st.masks.shape[0], mid_words=ctx.index.n_words,
         mid_terms=MID_TERMS)
+    say("parity", dot_interaction_cases=_parity_dot(dev),
+        flash_decode_cases=_parity_decode(dev), tol=json.dumps(
+            {"dot_interaction": DOT_TOL, "flash_decode": DECODE_TOL}))
 
     # the whole mid-size network, through the kernel and the registry
     nets = {}
@@ -362,7 +453,8 @@ def phase_strings(dev):
         grown = idx.network(["accelerate"], depth=1)
         if grown.get(("networks", "accelerate")) != 2:
             raise AssertionError(f"ingest not visible ({method}): {grown}")
-    launches = dict(ops.LAUNCHES)
+    launches = {name: ops.LAUNCHES[name] for name in
+                ("postings_counts", "level_step", "cooccur_counts")}
     if not all(launches.values()):
         raise AssertionError(f"a kernel was not launched: {launches}")
     say("strings", methods=4, edges=len(want), full_edges=len(want_full),
@@ -637,9 +729,7 @@ def phase_kernels(dev, ctx, seeds, launches):
     d, vp = xd.shape
     n_ops = 2 * ROW_TILE * d * vp
     n_bytes = ROW_TILE * d + d * vp + ROW_TILE * vp * 4
-    t_ops, t_bytes = n_ops / INT8_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
     out.append({"name": "cooccur_counts", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/cooccur.cu",
                 "replaces": "src/repro/kernels/cooccur.py:36",
@@ -653,6 +743,376 @@ def phase_kernels(dev, ctx, seeds, launches):
         bytes=n_bytes, int8_mm_ms=f"{lib_ms:.4f}",
         tops=f"{n_ops / ms / 1e9:.1f}")
     return out
+
+
+def _f64_mlp(mlp, x, final_act=False):
+    n = len(mlp.w)
+    for i, (w, b) in enumerate(zip(mlp.w, mlp.b)):
+        x = x @ w.double() + b.double()
+        if i < n - 1 or final_act:
+            x = x.clamp(min=0)
+    return x
+
+
+def dlrm_rows_f64(cfg, model, batch, rows):
+    """The logits of ``rows`` of ``batch``, recomputed in float64 through
+    plain torch code (gather, MLPs, full Gram, triangle)."""
+    import torch
+    ids = batch["sparse_ids"][rows].to(torch.int64)
+    offs = torch.arange(cfg.n_sparse, device=ids.device) * cfg.vocab_per_field
+    emb = model.table[ids + offs[None, :]].double()               # (n, F, E)
+    dense_vec = _f64_mlp(model.bot, batch["dense"][rows].double(), True)
+    x = torch.cat([dense_vec[:, None, :], emb], dim=1)
+    gram = x @ x.transpose(1, 2)
+    ii, jj = torch.tril_indices(x.shape[1], x.shape[1], offset=-1,
+                                device=x.device)
+    top_in = torch.cat([dense_vec, gram[:, ii, jj]], dim=-1)
+    return _f64_mlp(model.top, top_in)[:, 0]
+
+
+def _check_dlrm_rows(cfg, model, batch, got, what, prob):
+    """Hold N_DLRM_CHECKED sampled rows of ``got`` against float64."""
+    import torch
+    n = got.shape[0]
+    rng = np.random.default_rng(n)
+    rows = torch.from_numpy(rng.choice(n, min(N_DLRM_CHECKED, n),
+                                       replace=False)).to(got.device)
+    want = dlrm_rows_f64(cfg, model, batch, rows)
+    if prob:
+        want = torch.sigmoid(want)
+    got_rows = got[rows].double()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"dlrm {what}: non-finite outputs")
+    err = (got_rows - want).abs()
+    if bool((err > DLRM_ATOL + DLRM_RTOL * want.abs()).any()):
+        raise AssertionError(f"dlrm {what}: {len(rows)} sampled rows differ "
+                             f"from float64 by up to {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def device_profile(fn, top=6):
+    """One run of ``fn`` under ``torch.profiler``: the host window (ms,
+    ending in a synchronize), the device's busy time in it (the sum of its
+    kernels' times, ms) and the ``top`` kernels by time.  None where there
+    is no card (the CPU rehearsal)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name[:60]] = per.get(e.name[:60], 0.0) + e.device_time_total / 1e3
+    busy = sum(per.values())
+    kernels = sorted(per.items(), key=lambda kv: -kv[1])[:top]
+    return wall_ms, busy, [(n, round(ms, 4)) for n, ms in kernels]
+
+
+def say_profile(phase, what, fn):
+    prof = device_profile(fn)
+    if prof is None:
+        say(phase, profile=what, device_busy_ms="not-measured")
+        return
+    wall_ms, busy, kernels = prof
+    say(phase, profile=what, wall_ms=f"{wall_ms:.4f}",
+        device_busy_ms=f"{busy:.4f}",
+        idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}",
+        top_kernels=json.dumps(kernels))
+
+
+def phase_dlrm(dev, launches):
+    """dlrm-rm2 at full size (26 fields x 10^6 rows x 64 fp32) served at
+    RECSYS_SHAPES' three serving cells through kernel 4."""
+    import torch
+    from repro_torch.configs import get_config, replace
+    from repro_torch.data import recsys_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("fp32 matmuls must not run in TF32")
+    cfg = replace(get_config("dlrm-rm2"), vocab_per_field=DLRM_VOCAB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = R.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    say("dlrm", arch=cfg.name, fields=cfg.n_sparse,
+        rows_per_field=cfg.vocab_per_field, embed=cfg.embed_dim,
+        table_gb=f"{model.table.numel() * 4 / 1e9:.3f}",
+        init_s=f"{time.perf_counter() - t0:.2f}",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        matmul_precision=torch.get_float32_matmul_precision())
+
+    def timed(fn, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(cfg, model, batch)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    p99 = [R.as_batch(recsys_batch(cfg, SERVE_P99, step), dev)
+           for step in range(N_P99_BATCHES + 1)]
+    bulk = [R.as_batch(recsys_batch(cfg, SERVE_BULK, step), dev)
+            for step in range(N_BULK_BATCHES + 1)]
+    t0 = time.perf_counter()
+    cand = R.as_batch(recsys_batch(cfg, RETRIEVAL_CAND, 0, seed=1), dev)
+    cand_gen_s = time.perf_counter() - t0
+    R.serve_fn(cfg, model, p99[-1])            # first use: allocator
+    R.serve_fn(cfg, model, bulk[-1])
+
+    ops.reset_launches()
+    p99_ms, bulk_ms, out = [], [], {}
+    for b in p99[:-1]:
+        out["serve_p99"], ms = timed(R.serve_fn, b)
+        p99_ms.append(ms)
+    for b in bulk[:-1]:
+        out["serve_bulk"], ms = timed(R.serve_fn, b)
+        bulk_ms.append(ms)
+    out["retrieval_cand"], cand_ms = timed(R.retrieval_fn, cand)
+    counts = dict(ops.LAUNCHES)
+    if counts["dot_interaction"] != N_P99_BATCHES + N_BULK_BATCHES + 1:
+        raise AssertionError(f"dlrm launched dot_interaction "
+                             f"{counts['dot_interaction']} times")
+    launches["dot_interaction"] = counts["dot_interaction"]
+
+    errs = {
+        "serve_p99": _check_dlrm_rows(cfg, model, p99[-2], out["serve_p99"],
+                                      "serve_p99", True),
+        "serve_bulk": _check_dlrm_rows(cfg, model, bulk[-2],
+                                       out["serve_bulk"], "serve_bulk", True),
+        "retrieval_cand": _check_dlrm_rows(cfg, model, cand,
+                                           out["retrieval_cand"],
+                                           "retrieval_cand", False)}
+    for name, n in (("serve_p99", SERVE_P99), ("serve_bulk", SERVE_BULK),
+                    ("retrieval_cand", RETRIEVAL_CAND)):
+        if out[name].shape != (n,):
+            raise AssertionError(f"dlrm {name}: shape {out[name].shape}")
+    p50, p99v = np.percentile(p99_ms, [50, 99])
+    # rates over the whole window: every sample over the sum of batch times
+    p99_rate = SERVE_P99 * len(p99_ms) / (sum(p99_ms) / 1e3)
+    bulk_rate = SERVE_BULK * len(bulk_ms) / (sum(bulk_ms) / 1e3)
+    say("dlrm", shape="serve_p99", batch=SERVE_P99, batches=len(p99_ms),
+        p50_ms=f"{p50:.4f}", p99_ms=f"{p99v:.4f}",
+        samples_per_s=f"{p99_rate:.1f}",
+        max_abs_err_vs_f64=f"{errs['serve_p99']:.3g}")
+    say("dlrm", shape="serve_bulk", batch=SERVE_BULK, batches=len(bulk_ms),
+        ms=" ".join(f"{m:.3f}" for m in bulk_ms),
+        samples_per_s=f"{bulk_rate:.1f}",
+        max_abs_err_vs_f64=f"{errs['serve_bulk']:.3g}")
+    say("dlrm", shape="retrieval_cand", candidates=RETRIEVAL_CAND,
+        seconds=f"{cand_ms / 1e3:.4f}", batch_gen_s=f"{cand_gen_s:.2f}",
+        max_abs_err_vs_f64=f"{errs['retrieval_cand']:.3g}")
+    say_profile("dlrm", "serve_p99", lambda: R.serve_fn(cfg, model, p99[0]))
+    say_profile("dlrm", "serve_bulk", lambda: R.serve_fn(cfg, model, bulk[0]))
+    say("dlrm", launches=json.dumps(counts), rows_checked=N_DLRM_CHECKED,
+        rtol=DLRM_RTOL, atol=DLRM_ATOL, max_memory_allocated_gb=
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return cfg, model, {"serve_p99": p99[0], "serve_bulk": bulk[0],
+                        "retrieval_cand": cand}
+
+
+def decode_inputs(name, dtype, dev, ragged):
+    """q, k, v at a decode cell from a seeded generator on the card, with
+    ragged lengths from a seed (with B >= 3, row 0 length 0 and row 1
+    length 1) or every length = S."""
+    import torch
+    hq, hkv, d = DECODE_HEADS
+    b, s = DECODE_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(s + b)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    if ragged:
+        ln = np.random.default_rng(s).integers(1, s + 1, b)
+        if b >= 3:                         # and random rows beside them
+            ln[:2] = 0, 1
+    else:
+        ln = np.full(b, s)
+    return q, k, v, torch.from_numpy(ln.astype(np.int32)).to(dev)
+
+
+def _check_decode(got, want, dtype, what):
+    """Max abs err of kernel 5's ``got`` against the plain ``want`` (both
+    (B, Hq, d)), raising where it exceeds DECODE_TOL."""
+    import torch
+    w = want.float()
+    err = (got.float() - w).abs()
+    if dtype == torch.bfloat16:
+        rms = w.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+        lim = 2.0 ** -7 * w.abs() + 1e-3 * rms
+    else:
+        tol = DECODE_TOL["float32"]
+        lim = tol + tol * w.abs()
+    if not bool(torch.isfinite(got.float()).all()) or bool((err > lim).any()):
+        raise AssertionError(f"flash_decode kernel != plain at {what}: "
+                             f"max abs err {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def phase_decode(dev, launches):
+    """Kernel 5 through its public wrapper at llama3-8b's decode cells,
+    ragged lengths (a 0 and a 1 among them), held against the plain
+    version on the card."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    runs = [("decode_32k", torch.bfloat16), ("long_500k", torch.bfloat16),
+            ("long_500k", torch.float32)]
+    inputs = [decode_inputs(name, dt, dev, ragged=True) for name, dt in runs]
+    ops.reset_launches()
+    outs = [ops.flash_decode(*args) for args in inputs]
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    if counts["flash_decode"] != len(runs):
+        raise AssertionError(f"decode launched flash_decode "
+                             f"{counts['flash_decode']} times")
+    launches["flash_decode"] = counts["flash_decode"]
+    for (name, dt), args, got in zip(runs, inputs, outs):
+        err = _check_decode(got, ref.flash_decode_ref(*args), dt, name)
+        b, s = DECODE_SHAPES[name]
+        say("decode", shape=name, dtype=str(dt).split(".")[-1], batch=b,
+            seq=s, heads="x".join(map(str, DECODE_HEADS)),
+            lengths=f"{int(args[3].min())}..{int(args[3].max())}",
+            max_abs_err=f"{err:.3g}", tol=DECODE_TOL[str(dt).split('.')[-1]])
+    del inputs, outs
+    torch.cuda.empty_cache()
+    say("decode", launches=json.dumps(counts), max_memory_allocated_gb=
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+
+
+def _event_ms(fn):
+    """Device time of one run of ``fn`` by CUDA events (no warm-up)."""
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _bound_ms(n_bytes, n_ops, ops_per_s):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_kernel_dot(dev, cfg, model, batches, launches):
+    """Kernel 4 at the interaction input of each DLRM cell, beside its
+    plain version, its bound and ``torch.bmm``'s full Gram; the JSON entry
+    is serve_bulk's."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys as R
+
+    entry = None
+    for name in ("serve_bulk", "serve_p99", "retrieval_cand"):
+        _, x = R.interaction_input(cfg, model, batches[name])
+        b, f, e = x.shape
+        got = ops.dot_interaction(x)
+        want, plain_ms = _event_ms(lambda: ref.dot_interaction_ref(x))
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"dot_interaction kernel != plain at {name}")
+        del got, want
+        ms = cuda_ms(lambda: ops.dot_interaction(x), 5)
+        p = f * (f - 1) // 2
+        n_bytes, n_ops = b * f * e * 4 + b * p * 4, 2 * b * p * e
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
+        # yardstick (not used by the port): the full (B, F, F) Gram
+        lib_ms = cuda_ms(lambda: torch.bmm(x, x.mT), 5)
+        say("kernels", kernel="dot_interaction", shape=name, batch=b,
+            fields=f, embed=e, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bytes=n_bytes,
+            flops=n_ops, bmm_full_gram_ms=f"{lib_ms:.4f}",
+            max_abs_err=f"{err:.3g}", gb_per_s=f"{n_bytes / ms / 1e6:.1f}")
+        if entry is None:
+            entry = {"name": "dot_interaction", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               "dot_interaction.cu",
+                     "replaces": "src/repro/kernels/dot_interaction.py:32",
+                     "launches": launches["dot_interaction"],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+        del x
+    return entry
+
+
+def phase_kernel_decode(dev, launches):
+    """Kernel 5 at the decode cells with every length = S, beside its plain
+    version, its bound and SDPA on (B, Hq, 1, d) queries against the
+    (B, Hkv, S, d) views with ``enable_gqa=True`` and a boolean length mask
+    (its memory above the inputs says whether it copies the cache); the
+    JSON entry is decode_32k's."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    hq, hkv, d = DECODE_HEADS
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entry = None
+    for name in ("decode_32k", "long_500k"):
+        q, k, v, ln = decode_inputs(name, torch.bfloat16, dev, ragged=False)
+        b, s = DECODE_SHAPES[name]
+        got = ops.flash_decode(q, k, v, ln)
+        want, plain_ms = _event_ms(lambda: ref.flash_decode_ref(q, k, v, ln))
+        err = _check_decode(got, want, torch.bfloat16, f"{name}, full")
+        del want
+        ms = cuda_ms(lambda: ops.flash_decode(q, k, v, ln), 5)
+        cache = 2 * k.numel() * k.element_size()
+        n_bytes = cache + 2 * q.numel() * q.element_size() + b * 4
+        n_ops = 4 * b * hq * s * d
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        # yardstick (not used by the port)
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)      # (B, Hkv, S, d)
+        mask = (torch.arange(s, device=dev)[None, :] < ln[:, None]
+                )[:, None, None, :]
+
+        def library():
+            return sdpa(q[:, :, None, :], ks, vs, attn_mask=mask,
+                        enable_gqa=True)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lib_err = float((library().reshape(b, hq, d).float() - got.float())
+                        .abs().max())
+        lib_ms = cuda_ms(library, 3)
+        lib_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        say("kernels", kernel="flash_decode", shape=name, batch=b, seq=s,
+            heads=f"{hq}x{hkv}x{d}", dtype="bfloat16", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, bytes=n_bytes,
+            gb_per_s=f"{n_bytes / ms / 1e6:.1f}",
+            sdpa_gqa_ms=f"{lib_ms:.4f}", sdpa_gqa_max_abs_err=f"{lib_err:.3g}",
+            sdpa_gqa_transient_gb=f"{lib_gb:.3f}",
+            sdpa_gqa_copies_cache=lib_gb > 0.5 * cache / 1e9,
+            max_abs_err=f"{err:.3g}")
+        say_profile("kernels", f"flash_decode {name}",
+                    lambda: ops.flash_decode(q, k, v, ln))
+        if name == "decode_32k":
+            entry = {"name": "flash_decode", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "replaces": "src/repro/kernels/flash_decode.py:69",
+                     "launches": launches["flash_decode"],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+        del q, k, v, ks, vs, got
+        torch.cuda.empty_cache()
+    return entry
 
 
 def main() -> int:
@@ -673,6 +1133,14 @@ def main() -> int:
     ctx, hidx, seeds, launches = phase_csl(dev)
     phase_materialize(dev, ctx, hidx, launches)
     kernels = phase_kernels(dev, ctx, seeds, launches)
+    del ctx, hidx                      # the CSL artifacts, about 33 GB
+    torch.cuda.empty_cache()
+    dlrm = phase_dlrm(dev, launches)
+    kernels.append(phase_kernel_dot(dev, *dlrm, launches))
+    del dlrm                           # the 6.7 GB table and the batches
+    torch.cuda.empty_cache()
+    phase_decode(dev, launches)
+    kernels.append(phase_kernel_decode(dev, launches))
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

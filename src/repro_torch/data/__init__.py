@@ -1,7 +1,9 @@
-"""Host-side data: tokeniser and the synthetic CSL corpus."""
+"""Host-side data: tokeniser, the synthetic CSL corpus and the seeded
+recsys batches."""
 from repro_torch.data.corpus import synthetic_csl  # noqa: F401
 from repro_torch.data.tokenizer import (  # noqa: F401
     DEFAULT_STOPWORDS,
     build_lexicon,
     tokenize,
 )
+from repro_torch.data.pipeline import recsys_batch  # noqa: F401

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: every kernel source of the package
-SOURCES = ("postings", "level_step", "cooccur")
+SOURCES = ("postings", "level_step", "cooccur", "dot_interaction",
+           "flash_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -20,7 +20,8 @@ from repro_torch.kernels import ref
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0,
-                             "cooccur_counts": 0}
+                             "cooccur_counts": 0, "dot_interaction": 0,
+                             "flash_decode": 0}
 
 
 def reset_launches() -> None:
@@ -135,3 +136,45 @@ def cooccur_gemm(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
     """``C = x_l^T @ x_r`` as float32: the counts of :func:`cooccur_counts`
     in the reference ``cooccur_gemm``'s output type."""
     return cooccur_counts(x_l, x_r).to(torch.float32)
+
+
+def dot_interaction(x: torch.Tensor) -> torch.Tensor:
+    """DLRM dot interaction: x (B, F, E) fp32 or bf16 -> (B, F (F - 1) / 2),
+    the strict lower triangle of each sample's Gram matrix, row-major over
+    i > j, summed in fp32, in x's dtype.  Mirrors
+    ``repro.kernels.ops.dot_interaction``; any B, nothing padded."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, F, E), got shape {tuple(x.shape)}")
+    if _on_cuda(x):
+        from repro_torch.kernels.dot_interaction import dot_interaction_cuda
+        out = dot_interaction_cuda(x)
+        LAUNCHES["dot_interaction"] += 1
+        return out
+    return ref.dot_interaction_ref(x)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
+                 *, chunk: int = 512) -> torch.Tensor:
+    """GQA decode attention: q (B, Hq, d); k, v (B, S, Hkv, d), fp32 or
+    bf16; ``length`` a scalar or (B,), the valid cache prefix of each row
+    (clamped to [0, S]) -> (B, Hq, d) in q's dtype.  Mirrors
+    ``repro.kernels.ops.flash_decode`` with the Pallas kernel's arithmetic
+    (see :func:`repro_torch.kernels.ref.flash_decode_ref`); ``chunk`` sets
+    only the padded S of the length-0 rule, as in the reference."""
+    b, hq, d = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d \
+            or v.shape != k.shape:
+        raise ValueError(f"k, v must be (B, S, Hkv, d) matching q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    s, hkv = k.shape[1], k.shape[2]
+    if s < 1 or hq % hkv:
+        raise ValueError(f"S={s} must be >= 1 and Hq={hq} a multiple of "
+                         f"Hkv={hkv}")
+    if _on_cuda(q):
+        from repro_torch.kernels.flash_decode import flash_decode_cuda
+        ln = ref.decode_lengths(length, b, s, q.device)
+        out = flash_decode_cuda(q, k, v, ln, chunk)
+        LAUNCHES["flash_decode"] += 1
+        return out
+    return ref.flash_decode_ref(q, k, v, length, chunk=chunk)

@@ -144,3 +144,91 @@ def level_step_ref(masks: torch.Tensor, packed_t_pad: torch.Tensor,
     counts = masked_counts(counts, terms, valid, vis, v)
     w, i = topk_lower_index(counts, k)
     return w, i.to(torch.int32)
+
+
+def dot_interaction_ref(x: torch.Tensor, *,
+                        chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """DLRM dot interaction: x (B, F, E) -> (B, F (F - 1) / 2), the strict
+    lower triangle of each sample's Gram matrix, row-major over i > j,
+    accumulated in fp32 and returned in x's dtype (the contract of
+    ``repro.kernels.ref.dot_interaction_ref``).  Samples go through in
+    chunks whose (chunk, F, F) fp32 Gram stays under ``chunk_bytes``;
+    chunking changes no result."""
+    b, f, _ = x.shape
+    ii, jj = torch.tril_indices(f, f, offset=-1, device=x.device)
+    out = torch.empty((b, ii.numel()), dtype=x.dtype, device=x.device)
+    step = max(1, chunk_bytes // max(1, 4 * f * f))
+    for s0 in range(0, b, step):
+        xf = x[s0:s0 + step].to(torch.float32)
+        gram = torch.bmm(xf, xf.transpose(1, 2))
+        out[s0:s0 + step] = gram[:, ii, jj].to(x.dtype)
+    return out
+
+
+#: the Pallas decode kernel's masked score and initial running max
+DECODE_NEG = -1e30
+
+
+def decode_lengths(length, b: int, s: int, device) -> torch.Tensor:
+    """``length`` (a scalar or (B,)) as a (B,) int32 tensor on ``device``,
+    clamped to [0, S]."""
+    ln = torch.as_tensor(length, dtype=torch.int32, device=device)
+    return torch.broadcast_to(ln, (b,)).clamp(0, s).contiguous()
+
+
+def decode_pad(s: int, chunk: int) -> int:
+    """S padded to the decode chunk, as the reference wrapper pads it
+    (chunk = min(chunk, S))."""
+    ck = min(chunk, s)
+    return -(-s // ck) * ck
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length, *, chunk: int = 512,
+                     chunk_bytes: int = 4 << 30) -> torch.Tensor:
+    """GQA decode attention with the Pallas kernel's arithmetic
+    (``repro/kernels/flash_decode.py``), not the exact-softmax oracle's.
+
+    q (B, Hq, d); k, v (B, S, Hkv, d), fp32 or bf16; ``length`` a scalar
+    or (B,): the valid prefix of each row's cache, clamped to [0, S].
+    Returns (B, Hq, d) in q's dtype, computed in fp32.  Query head h reads
+    KV head ``h // (Hq // Hkv)``.
+
+    As in the Pallas kernel, masked scores are -1e30 (not -inf), the
+    running max starts at -1e30, the weighted sum is divided by
+    ``max(l, 1e-30)``, and S is taken as padded with zeros to a multiple of
+    ``min(chunk, S)``.  For every length >= 1 that equals the exact
+    softmax.  A row of length 0 has every score at -1e30, so every padded
+    position weighs 1 and the row gives sum(V[:S]) / S_pad, as
+    ``repro.kernels.ops.flash_decode(..., backend="interpret", chunk=c)``
+    does; the reference's exact oracle gives NaN there and its XLA path
+    the mean over S.  The softmax is taken in one pass over the whole row
+    (the padded positions enter its sum analytically), which equals the
+    kernel's running form up to fp32 rounding.  Rows go through in chunks
+    whose fp32 copy of K and V stays under ``chunk_bytes``."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    s_pad = decode_pad(s, chunk)
+    ln = decode_lengths(length, b, s, q.device)
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    scale = torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    pos = torch.arange(s, device=q.device)
+    step = max(1, chunk_bytes // max(1, 8 * s * hkv * d))
+    for b0 in range(0, b, step):
+        sl = slice(b0, b0 + step)
+        qf = q[sl].to(torch.float32).reshape(-1, hkv, g, d)
+        kf = k[sl].to(torch.float32)
+        vf = v[sl].to(torch.float32)
+        scores = torch.einsum("bhgd,bshd->bhgs", qf, kf) / scale
+        valid = pos[None, :] < ln[sl, None]                   # (b, S)
+        scores = torch.where(valid[:, None, None, :], scores, DECODE_NEG)
+        m = scores.amax(dim=-1, keepdim=True)                 # >= -1e30
+        p = torch.exp(scores - m)
+        # the S_pad - S zero positions: score -1e30, so they weigh 1 only
+        # where every score is masked (m == -1e30), else 0
+        l = p.sum(dim=-1, keepdim=True) + (s_pad - s) * torch.exp(DECODE_NEG - m)
+        acc = torch.einsum("bhgs,bshd->bhgd", p, vf)
+        o = acc / torch.clamp(l, min=1e-30)
+        out[sl] = o.reshape(-1, hq, d).to(q.dtype)
+    return out

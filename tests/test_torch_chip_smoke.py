@@ -41,7 +41,8 @@ def smoke(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     sys.modules.pop("chip_smoke", None)
     import chip_smoke
-    from repro_torch.kernels import cooccur, level_step, ops, postings, ref
+    from repro_torch.kernels import (cooccur, dot_interaction, flash_decode,
+                                     level_step, ops, postings, ref)
     for name, value in [
             ("Event", _Event), ("synchronize", lambda *a: None),
             ("reset_peak_memory_stats", lambda *a: None),
@@ -62,9 +63,19 @@ def smoke(monkeypatch):
     # the launcher takes (M, K) and (N, K): the operands' .t() views
     monkeypatch.setattr(cooccur, "cooccur_counts_cuda",
                         lambda a, b: ref.cooccur_counts_ref(a.t(), b.t()))
+    monkeypatch.setattr(dot_interaction, "dot_interaction_cuda",
+                        ref.dot_interaction_ref)
+    monkeypatch.setattr(flash_decode, "flash_decode_cuda",
+                        lambda q, k, v, ln, chunk: ref.flash_decode_ref(
+                            q, k, v, ln, chunk=chunk))
     for name, value in [("CSL_DOCS", 1500), ("CSL_TERMS", 256),
                         ("MID_DOCS", 1024), ("MID_TERMS", 128),
-                        ("N_QUERIES", 16)]:
+                        ("N_QUERIES", 16), ("DLRM_VOCAB", 1000),
+                        ("SERVE_P99", 16), ("SERVE_BULK", 96),
+                        ("RETRIEVAL_CAND", 300), ("N_P99_BATCHES", 5),
+                        ("DECODE_HEADS", (8, 2, 16)),
+                        ("DECODE_SHAPES", {"decode_32k": (3, 100),
+                                           "long_500k": (1, 300)})]:
         monkeypatch.setattr(chip_smoke, name, value)
     return chip_smoke
 
@@ -95,6 +106,60 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert "[materialize] method=gemm" in out
     assert "[materialize] identical=True rows_checked=16" in out
     assert "materialize_methods=4 identical=True" in out
+
+
+def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,
+                                                               capsys):
+    dev = torch.device("cpu")
+    launches = {}
+    cfg, model, batches = smoke.phase_dlrm(dev, launches)
+    assert launches == {"dot_interaction": 5 + 3 + 1}   # p99, bulk, retrieval
+    assert model.table.shape == (26 * 1000, 64)
+    k4 = smoke.phase_kernel_dot(dev, cfg, model, batches, launches)
+    smoke.phase_decode(dev, launches)
+    assert launches["flash_decode"] == 3
+    k5 = smoke.phase_kernel_decode(dev, launches)
+    assert [k4["name"], k5["name"]] == ["dot_interaction", "flash_decode"]
+    assert [k4["launches"], k5["launches"]] == [9, 3]
+    for k in (k4, k5):
+        assert set(k) == KEYS
+        assert (ROOT / k["source"]).is_file()
+        assert k["bound_ms"] > 0 and k["bound_by"] == "bytes"
+        assert k["max_abs_err"] == 0            # plain against plain here
+        assert k["library_ms"] is not None
+    out = capsys.readouterr().out
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        assert f"[dlrm] shape={shape}" in out
+        assert f"kernel=dot_interaction shape={shape}" in out
+    assert "tf32=False matmul_precision=highest" in out
+    for shape in ("decode_32k", "long_500k"):
+        assert f"[decode] shape={shape}" in out
+        assert f"kernel=flash_decode shape={shape}" in out
+    assert "lengths=0.." in out
+    assert "sdpa_gqa_copies_cache=" in out
+
+
+def test_chip_smoke_decode_check_fails_a_wrong_kernel(smoke):
+    """The bf16 check of kernel 5 at a long, flat softmax (|out| about
+    sqrt(e / S)) passes the same attention summed in float64 and rounded
+    once, and fails a kernel of zeros and one that drops an eighth of S."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(0)
+    b, hq, hkv, d, s = 3, 8, 2, 128, 8192
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    ln = torch.full((b,), s, dtype=torch.int32)
+    want = ref.flash_decode_ref(q, k, v, ln)
+    qd = q.double().reshape(b, hkv, hq // hkv, d)
+    p = torch.softmax(torch.einsum("bhgd,bshd->bhgs", qd, k.double())
+                      / d ** 0.5, dim=-1)
+    f64 = torch.einsum("bhgs,bshd->bhgd", p, v.double()).reshape(b, hq, d)
+    assert smoke._check_decode(f64.to(torch.bfloat16), want, torch.bfloat16,
+                               "f64") > 0
+    for wrong in (torch.zeros_like(want),
+                  ref.flash_decode_ref(q, k, v, ln - s // 8)):
+        with pytest.raises(AssertionError, match="kernel != plain"):
+            smoke._check_decode(wrong, want, torch.bfloat16, "wrong")
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels against their plain versions, on
-the card, and the paths that run them (BFS methods, materialization).  Every test here needs a CUDA device and skips without one; the
+the card, and the paths that run them (BFS methods, materialization, DLRM
+serving).  Every test here needs a CUDA device and skips without one; the
 file imports no jax, so it runs on a GPU host that has none:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -160,3 +161,107 @@ def test_materialize_methods_agree_on_the_card(cuda):
             net = materialize(ctx, k=8, method=method, scope=scope)
             for a, b in zip(net, want):
                 assert torch.equal(a, b), (method, scope)
+
+
+def _normal(rng, shape, device, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(device=device, dtype=dtype)
+
+
+# fp32 sums in another order: 1e-5 (the reference's tolerance); bf16 output
+# rounded from fp32 sums that may differ in the last bit: one bf16 step
+_DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,e,dtype", [
+    (128, 27, 64, torch.float32), (37, 27, 64, torch.float32),
+    (64, 8, 16, torch.float32), (256, 40, 10, torch.float32),
+    (1001, 64, 256, torch.float32),      # fewer samples a CTA
+    (37, 27, 64, torch.bfloat16), (5, 27, 63, torch.bfloat16),  # scalar path
+    (3, 2, 1, torch.float32),
+])
+def test_dot_interaction_kernel_matches_plain(cuda, b, f, e, dtype):
+    rng = np.random.default_rng(b + f + e)
+    x = _normal(rng, (b, f, e), cuda, dtype)
+    before = ops.LAUNCHES["dot_interaction"]
+    got = ops.dot_interaction(x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dot_interaction"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, f * (f - 1) // 2)
+    want = ref.dot_interaction_ref(x)
+    tol = _DOT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _decode_inputs(rng, b, hq, hkv, d, s, device, dtype):
+    q = _normal(rng, (b, hq, d), device, dtype)
+    k = _normal(rng, (b, s, hkv, d), device, dtype)
+    v = _normal(rng, (b, s, hkv, d), device, dtype)
+    ln = rng.integers(1, s + 1, (b,)).astype(np.int32)
+    if b >= 3:                              # the length-0 rule, length 1
+        ln[:2] = 0, 1
+    return q, k, v, torch.from_numpy(ln).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,d,s,chunk", [
+    (2, 8, 2, 64, 512, 128), (1, 4, 4, 32, 256, 64),
+    (3, 16, 8, 128, 300, 128),          # S not a multiple of the tile
+    (2, 8, 1, 64, 1024, 256),           # MQA
+    (2, 32, 2, 256, 100, 64),           # G = 16, d = 256
+    (3, 2, 1, 8, 33, 512),              # d = 8, chunk > S
+    (1, 32, 8, 128, 20000, 512),        # one row split across many CTAs
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(cuda, b, hq, hkv, d, s, chunk,
+                                          dtype):
+    rng = np.random.default_rng(b * s + d)
+    q, k, v, ln = _decode_inputs(rng, b, hq, hkv, d, s, cuda, dtype)
+    before = ops.LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q, k, v, ln, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_decode"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_decode_ref(q, k, v, ln, chunk=chunk)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError):
+        ops.dot_interaction(torch.zeros((2, 65, 8), device=cuda))
+    with pytest.raises(TypeError):
+        ops.dot_interaction(torch.zeros((2, 4, 8), dtype=torch.float16,
+                                        device=cuda))
+    with pytest.raises(ValueError):
+        ops.dot_interaction(torch.zeros((2, 8, 4), device=cuda).mT)
+    q = torch.zeros((1, 17, 8), device=cuda)
+    kv = torch.zeros((1, 4, 1, 8), device=cuda)
+    with pytest.raises(ValueError):                 # G = 17
+        ops.flash_decode(q, kv, kv, 4)
+    q = torch.zeros((1, 2, 12), device=cuda)
+    kv = torch.zeros((1, 4, 1, 12), device=cuda)
+    with pytest.raises(ValueError):                 # d = 12
+        ops.flash_decode(q, kv, kv, 4)
+
+
+@pytest.mark.gpu
+def test_dlrm_serving_on_the_card_matches_the_cpu(cuda):
+    """The DLRM path on the card, through the kernel, equals the same
+    weights on the CPU (plain interaction)."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys as R
+    cfg = replace(get_config("dlrm-rm2"), vocab_per_field=1000)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    cpu_model = R.init_params(cfg, gen, device="cpu")
+    model = R.DLRM(cfg, device=cuda)
+    model.load_state_dict(cpu_model.state_dict())
+    batch = recsys_batch(cfg, 300, 1)
+    before = ops.LAUNCHES["dot_interaction"]
+    got = R.serve_fn(cfg, model, R.as_batch(batch, cuda))
+    assert ops.LAUNCHES["dot_interaction"] == before + 1
+    want = R.serve_fn(cfg, cpu_model, R.as_batch(batch, "cpu"))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)

@@ -263,3 +263,142 @@ def test_cooccur_counts_refuse_a_copy_or_a_wrong_type():
     # one doc or one term: any stride of the unit axis is fine
     one = torch.ones((1, 5), dtype=torch.int8)
     assert (ops.cooccur_counts(one, one) == 1).all()
+
+
+# ---------------------------------------------------------------------------
+# DLRM dot interaction
+# ---------------------------------------------------------------------------
+
+_DTYPES = {"float32": (jnp.float32, torch.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a, dtype):
+    """One fp32 numpy array as the same values in both packages' dtype
+    (both round to bf16 to nearest even)."""
+    jdt, tdt = _DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+@pytest.mark.parametrize("b,f,e", [
+    (128, 27, 64), (37, 27, 64), (64, 8, 16), (256, 40, 10),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_interaction_matches_reference(b, f, e, dtype):
+    """The plain version == the Pallas kernel in interpret mode: fp32 at
+    the reference's 1e-5; bf16 at 1e-2 (one bf16 step: only the final
+    rounding of fp32 sums taken in another order differs)."""
+    rng = np.random.default_rng(b + f)
+    x = rng.standard_normal((b, f, e)).astype(np.float32)
+    jx, tx = _both(x, dtype)
+    want = np.asarray(jops.dot_interaction(jx, backend="interpret", bb=32),
+                      np.float32)
+    got = ops.dot_interaction(tx)
+    assert got.dtype == tx.dtype and got.shape == (b, f * (f - 1) // 2)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def test_dot_interaction_pair_order():
+    """Entry ordering matches (i, j) with i > j, row-major over i."""
+    f, e = 4, 2
+    x = np.arange(f * e, dtype=np.float32).reshape(1, f, e)
+    got = ops.dot_interaction(torch.from_numpy(x)).numpy()
+    gram = x[0] @ x[0].T
+    want = [gram[1, 0], gram[2, 0], gram[2, 1], gram[3, 0], gram[3, 1],
+            gram[3, 2]]
+    np.testing.assert_allclose(got[0], want, rtol=1e-6)
+    ref_out = np.asarray(jops.dot_interaction(jnp.asarray(x),
+                                              backend="interpret", bb=1))
+    np.testing.assert_allclose(got, ref_out, rtol=1e-6)
+
+
+def test_dot_interaction_chunking_is_exact():
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (9, 5, 3)).astype(np.float32))
+    assert torch.equal(ref.dot_interaction_ref(x),
+                       ref.dot_interaction_ref(x, chunk_bytes=1))
+
+
+# ---------------------------------------------------------------------------
+# flash decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_case(b, hq, hkv, d, s, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _decode_both(q, k, v, length, chunk, dtype):
+    jq, tq = _both(q, dtype)
+    jk, tk = _both(k, dtype)
+    jv, tv = _both(v, dtype)
+    want = np.asarray(jops.flash_decode(jq, jk, jv, jnp.asarray(length),
+                                        backend="interpret", chunk=chunk),
+                      np.float32)
+    got = ops.flash_decode(tq, tk, tv, torch.from_numpy(np.asarray(length)),
+                           chunk=chunk)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    return got.float().numpy(), want
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,s,chunk", [
+    (2, 8, 2, 64, 512, 128), (1, 4, 4, 32, 256, 64),
+    (3, 16, 8, 128, 300, 128),          # ragged S (padding path)
+    (2, 8, 1, 64, 1024, 256),           # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_matches_reference(b, hq, hkv, d, s, chunk, dtype):
+    """The plain version == the Pallas kernel in interpret mode, at
+    ``tests/test_kernels.py``'s shapes and tolerances (2e-5 / 2e-2)."""
+    q, k, v = _decode_case(b, hq, hkv, d, s, b * s)
+    length = np.random.default_rng(b * s).integers(1, s + 1, (b,)).astype(
+        np.int32)
+    got, want = _decode_both(q, k, v, length, chunk, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_length_one_and_zero(dtype):
+    """Length 1 attends to v[0] alone; length 0 follows the Pallas
+    kernel's arithmetic: every padded position weighs 1, so the row is
+    sum(V[:S]) / S_pad (S = 300 padded to 384 by chunk 128)."""
+    b, hq, hkv, d, s, chunk = 2, 4, 2, 32, 300, 128
+    q, k, v = _decode_case(b, hq, hkv, d, s, 0)
+    length = np.array([1, 0], np.int32)
+    got, want = _decode_both(q, k, v, length, chunk, dtype)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    vb = _both(v, dtype)[1].float().numpy()
+    g = hq // hkv
+    np.testing.assert_allclose(got[0], np.repeat(vb[0, 0], g, axis=0),
+                               rtol=tol, atol=tol)
+    mean_pad = vb[1].sum(axis=0) / 384
+    np.testing.assert_allclose(got[1], np.repeat(mean_pad, g, axis=0),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_decode_chunking_is_exact():
+    """Rows in chunks of one (a one-byte budget) give the same result."""
+    q, k, v = (torch.from_numpy(a) for a in _decode_case(3, 4, 2, 16, 50, 4))
+    ln = torch.tensor([0, 7, 50])
+    assert torch.equal(ref.flash_decode_ref(q, k, v, ln, chunk=32),
+                       ref.flash_decode_ref(q, k, v, ln, chunk=32,
+                                            chunk_bytes=1))
+
+
+def test_flash_decode_scalar_length_and_clamp():
+    """A scalar length broadcasts over B; a length above S reads as S."""
+    q, k, v = _decode_case(2, 4, 2, 16, 40, 3)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    full = ops.flash_decode(tq, tk, tv, torch.tensor([40, 40]), chunk=16)
+    assert torch.equal(ops.flash_decode(tq, tk, tv, 40, chunk=16), full)
+    assert torch.equal(ops.flash_decode(tq, tk, tv, 99, chunk=16), full)
+    with pytest.raises(ValueError):
+        ops.flash_decode(tq, tk[:, :, :1].repeat(1, 1, 3, 1),
+                         tv[:, :, :1].repeat(1, 1, 3, 1), 40)
