@@ -16,7 +16,7 @@ llama3-8b's decode cells.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
   2. parity       the three CSL kernels == their plain versions, exact, at
-                  small, ragged and mid shapes (2^15 docs x 2^13 terms,
+                  small, ragged, sparse and mid shapes (2^15 docs x 2^13 terms,
                   256 rows, one 128-term row block); methods "gemm" and
                   "popcount" served, and all four methods materialized,
                   at the mid size; kernels 4 and 5 == their plain
@@ -29,8 +29,10 @@ llama3-8b's decode cells.  Phases:
                   "gemm" (``torch._int_mm``): identical, 16 rows == the
                   host oracle
   6. kernels      each CSL kernel timed at the main path's shapes beside
-                  its plain version, its bound and a PyTorch yardstick;
-                  then the CSL context is freed
+                  its plain version, its bound and a PyTorch yardstick
+                  (kernel 1 also with the work its row tiles walk, its
+                  compaction launch's time, and at the level-0
+                  frontier); then the CSL context is freed
   7. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
@@ -192,8 +194,10 @@ def phase_device():
     t0 = time.perf_counter()
     logs = build.build()
     secs = time.perf_counter() - t0
-    regs = {name: [ln.split("info    : ")[-1] for ln in log.splitlines()
-                   if "registers" in ln] for name, log in logs.items()}
+    regs = {name: [ln.split("info    : ")[-1].strip()
+                   for ln in log.splitlines()
+                   if "registers" in ln or "spill stores" in ln]
+            for name, log in logs.items()}
     say("device", kind=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, build_s=f"{secs:.2f}",
@@ -212,6 +216,36 @@ def _level_args(rng, q, b, v, w, dev, density=0.8):
             torch.from_numpy(rng.integers(-1, v, r)).to(dev),
             torch.from_numpy(rng.integers(0, 2, r).astype(bool)).to(dev),
             torch.from_numpy(rng.integers(0, 2, (q, v)).astype(bool)).to(dev))
+
+
+def query_masks(rng, n_queries, beam, w, frac):
+    """Frontier masks shaped like the BFS's, as a uint32 numpy array: the
+    ``beam`` rows of a query are nonzero only inside its seed support (a
+    ``frac`` share of the W words, drawn anew per query), each row a random
+    subset of it."""
+    masks = np.zeros((n_queries * beam, w), np.uint32)
+    for qi in range(n_queries):
+        support = rng.choice(w, max(1, int(frac * w)), replace=False)
+        words = rng.integers(1, 1 << 32, (beam, support.size), dtype=np.uint32)
+        words[rng.random(words.shape) < 0.5] = 0
+        masks[qi * beam:(qi + 1) * beam, support] = words
+    return masks
+
+
+def _check_postings(masks, packed, what):
+    """Kernel 1 == its plain version, and its compaction launch == the
+    plain one."""
+    import torch
+    from repro_torch.kernels import postings, ref
+    if not torch.equal(postings.postings_counts_cuda(masks, packed),
+                       ref.postings_counts_ref(masks, packed)):
+        raise AssertionError(f"postings kernel != plain at {what}")
+    words, n = postings.active_words_cuda(masks)[:2]
+    want_words, want_n = ref.active_words_ref(masks, postings.ROWS)
+    first = torch.arange(words.shape[1], device=words.device) < n[:, None]
+    if not (torch.equal(n, want_n) and torch.equal(
+            torch.where(first, words, -1), want_words)):
+        raise AssertionError(f"postings compaction != plain at {what}")
 
 
 def _check_level(masks, pt, terms, valid, visited, v, k, dedup):
@@ -260,8 +294,9 @@ def _parity_dot(dev):
 
 
 def _parity_decode(dev):
-    """Kernel 5 == its plain version: MQA, G = 16, d = 8 and 256, S not a
-    multiple of the 32-row tile, chunk above S, lengths 0 and 1, one row
+    """Kernel 5 == its plain version: MQA, G = 3, 8 and 16, d = 8, 40
+    (not a multiple of the mma's 16), 192 and 256, S and lengths not
+    multiples of the 64-row tile, chunk above S, lengths 0 and 1, one row
     split across many CTAs, both dtypes."""
     import torch
     from repro_torch.kernels import ops, ref
@@ -272,7 +307,10 @@ def _parity_decode(dev):
                                     (2, 8, 1, 64, 1024, 256),
                                     (2, 32, 2, 256, 100, 64),
                                     (3, 2, 1, 8, 33, 512),
-                                    (1, 32, 8, 128, 20_000, 512)]:
+                                    (1, 32, 8, 128, 20_000, 512),
+                                    (3, 12, 4, 40, 130, 64),
+                                    (2, 16, 2, 192, 700, 128),
+                                    (4, 32, 8, 128, 4100, 512)]:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                        for shape in ((b, hq, d), (b, s, hkv, d),
@@ -293,7 +331,7 @@ def phase_parity(dev):
     plain methods "gemm" and "popcount" served at the mid size."""
     import torch
     from repro_torch.core import (QueryContext, build_host_index,
-                                  materialize, unpack_bitmap)
+                                  from_uint32, materialize, unpack_bitmap)
     from repro_torch.core.cooccurrence import _expand_level, initial_state
     from repro_torch.core.query_context import pad_transposed
     from repro_torch.data import synthetic_csl
@@ -309,6 +347,19 @@ def phase_parity(dev):
                            ref.postings_counts_ref(masks, packed)):
             raise AssertionError(f"postings kernel != plain at {(b, w, v)}")
         cases += 1
+    # sparse masks: query-structured (1% and 5% of the words), all zero,
+    # one nonzero word at the ragged W edge
+    for b, w, v, frac in [(256, 3001, 2500, 0.01), (96, 1000, 700, 0.05)]:
+        masks = from_uint32(query_masks(rng, b // BEAM, BEAM, w, frac), dev)
+        _check_postings(masks, _level_args(rng, 1, 1, v, w, dev)[1],
+                        f"query masks {(b, w, v, frac)}")
+        cases += 1
+    masks, packed, *_ = _level_args(rng, 1, 37, 515, 70, dev)
+    _check_postings(torch.zeros_like(masks), packed, "all-zero masks")
+    edge = torch.zeros_like(masks)
+    edge[36, 69] = -7
+    _check_postings(edge, packed, "one word at W - 1")
+    cases += 2
     # level step: ragged, k > v, dedup off, invalid rows, pad columns,
     # k above the column tile, batch-major visited
     for q, b, v, w, k, dedup in [(1, 5, 97, 7, 6, True),
@@ -342,6 +393,7 @@ def phase_parity(dev):
     if not torch.equal(got, ref.postings_counts_ref(st.masks,
                                                     ctx.index.packed)):
         raise AssertionError("postings kernel != plain at the mid size")
+    _check_postings(st.masks, ctx.index.packed, "the mid frontier")
     _check_level(st.masks, ctx.packed_t_pad(), st.terms, st.valid,
                  st.visited, MID_TERMS, TOPK, True)
     cases += 2
@@ -620,17 +672,26 @@ def _bound(nonzero_words, active_words, out_bytes, mask_bytes, v, sms, hz):
             "operations" if t_ops >= t_bytes else "bytes", ops_, bytes_)
 
 
+def sparse_work(masks, v):
+    """What kernel 1 walks: its row tiles' active words summed, and the
+    AND+popcounts it issues, Σ_tiles active words x tile rows x V (at 4
+    rows a tile no listed group of four rows is all zero)."""
+    from repro_torch.kernels import postings, ref
+    active = int(ref.active_words_ref(masks, postings.ROWS)[1].sum())
+    return active, active * postings.ROWS * v
+
+
 def phase_kernels(dev, ctx, seeds, launches):
     """Each kernel at the main path's shapes: a level-1 frontier of the
     first CSL batch, through the same code the engine runs."""
     import torch
     from repro_torch.core import unpack_bitmap
     from repro_torch.core.cooccurrence import _expand_level, initial_state
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, postings, ref
 
     seed_rows = torch.tensor(seeds[:Q_BATCH]).reshape(Q_BATCH, 1)
-    st = initial_state(ctx.index, seed_rows, beam=BEAM)
-    st, _ = _expand_level(ctx.index, st, Q_BATCH, TOPK, True, "fused",
+    st0 = initial_state(ctx.index, seed_rows, beam=BEAM)
+    st, _ = _expand_level(ctx.index, st0, Q_BATCH, TOPK, True, "fused",
                           ctx.operands("fused"))
     packed, pt = ctx.index.packed, ctx.packed_t_pad()
     r, w = st.masks.shape
@@ -656,7 +717,7 @@ def phase_kernels(dev, ctx, seeds, launches):
     err = int((got - want).abs().max())
     if err != 0:
         raise AssertionError("postings kernel != plain at the CSL shapes")
-    del got, want
+    del want
     ms = cuda_ms(lambda: ops.postings_counts(st.masks, packed), 5)
     bound_ms, bound_by, n_ops, n_bytes = _bound(
         nonzero_words, active_words, r * v * 4, r * w * 4, v, sms, hz)
@@ -666,10 +727,36 @@ def phase_kernels(dev, ctx, seeds, launches):
     xd = ctx.x_dense()
     m8 = unpack_bitmap(st.masks, torch.int8)
     lib = torch._int_mm(m8, xd)[:, :v]
-    lib_err = int((lib - ops.postings_counts(st.masks, packed)).abs().max())
+    lib_err = int((lib - got).abs().max())
+    if lib_err != 0:
+        raise AssertionError("postings kernel != torch._int_mm at the CSL "
+                             "shapes")
     del lib
     lib_ms = cuda_ms(lambda: torch._int_mm(m8, xd), 3)
     del m8
+    # the work the row tiles walk, and the compaction launch's share of the
+    # time (the launcher called directly: these launches are not counted)
+    active_t, issued = sparse_work(st.masks, v)
+    n_t = postings.active_words_cuda(st.masks)[1]
+    if int(n_t.sum()) != active_t:
+        raise AssertionError(f"compaction found {int(n_t.sum())} active "
+                             f"words, not {active_t}")
+    say("kernels", kernel="postings_counts", frontier="level-1",
+        tile_rows=postings.ROWS, active_words=active_t,
+        nonzero_words=nonzero_words, issued_popcounts=issued,
+        needed_popcounts=nonzero_words * v,
+        compaction_ms=f"{cuda_ms(lambda: postings.active_words_cuda(st.masks), 5):.4f}")
+    # the level-0 frontier: one nonzero row a query, so almost no
+    # popcounts; its time is the gather of the active packed rows
+    m0 = st0.masks
+    if not torch.equal(postings.postings_counts_cuda(m0, packed),
+                       ref.postings_counts_ref(m0, packed, chunk_bytes=2 << 30)):
+        raise AssertionError("postings kernel != plain at the level-0 frontier")
+    active_0, issued_0 = sparse_work(m0, v)
+    say("kernels", kernel="postings_counts", frontier="level-0",
+        tile_rows=postings.ROWS, active_words=active_0,
+        nonzero_words=int((m0 != 0).sum()), issued_popcounts=issued_0,
+        ms=f"{cuda_ms(lambda: postings.postings_counts_cuda(m0, packed), 5):.4f}")
     out.append({"name": "postings_counts", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/postings.cu",
                 "replaces": "src/repro/kernels/postings.py:37",
@@ -680,6 +767,7 @@ def phase_kernels(dev, ctx, seeds, launches):
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, popcounts=n_ops, bytes=n_bytes,
         int8_mm_ms=f"{lib_ms:.4f}", int8_mm_max_abs_err=lib_err)
+    del got
 
     # fused level step
     args = (st.masks, pt, st.terms, st.valid, st.visited)

@@ -1,4 +1,5 @@
-// Bit-packed postings intersection + popcount, hand-written for sm_90a.
+// Bit-packed postings intersection + popcount, hand-written for sm_90a,
+// walking only the mask words that are nonzero.
 //
 //   counts[b, v] = sum_w popc(masks[b, w] & packed[w, v])
 //   masks (B, W), packed (W, V): uint32 bit patterns; counts (B, V) int32.
@@ -6,68 +7,136 @@
 // Replaces the TPU kernel src/repro/kernels/postings.py::postings_counts_pallas
 // (body _postings_kernel), the count source of method "pallas".
 //
-// What bounds it on an H100: not the bytes.  Each packed word is read once
-// per row tile but feeds B popcounts; at the serving batch (B = 256 frontier
-// rows, W = 12,382, V = 65,536) that is 2.1e11 AND+popc+add against 3.3 GB
-// of operands.  __popc issues at 16 per clock per SM (CUDA programming
-// guide, compute capability 9.0), so the integer pipe needs ~50 ms where
-// streaming the operands once needs ~1 ms.
+// What bounds it on an H100: the popcounts that the data needs.  A zero mask
+// word adds nothing, so the work is (nonzero mask words) x V AND+popc+add;
+// __popc issues at 16 per clock per SM (CUDA programming guide, compute
+// capability 9.0).  At the CSL serving frontier (B = 256, W = 12,382,
+// V = 65,536) only about 4% of the mask words are nonzero: every frontier
+// row is its parent's mask ANDed with one posting list, so a row's nonzero
+// words lie inside its query's seed support.  A kernel that walks all W
+// words issues some 29 times the popcounts the data needs.  This one walks
+// each tile's nonzero words only, and what it waits on is then the gather
+// of those words' packed rows: at the level-0 frontier, one nonzero row a
+// query and almost no popcounts, it takes over half its level-1 time
+// (chip_smoke.py, phase kernels).
 //
-// Design: one CTA per (32-row tile, 256-column tile), one column per thread,
-// so each packed[w, v] load is coalesced along V and reused from a register
-// for all 32 rows.  A loop over W stages 64-word chunks of the 32 mask rows
-// in shared memory, laid out [w][row] so that four rows come in one 16-byte
-// broadcast load.  packed is not staged: every word of it is used by one
-// thread only.  Row tiles vary fastest in the grid, so the CTAs that share a
-// column tile run together and reread it from L2.  The kernel masks the
-// ragged edges of B, W and V itself; the wrapper pads nothing.
-// Skipping all-zero mask words and a carry-save popcount are later work.
+// Design: two launches, over tiles of 4 mask rows (kRows).
+//   Launch 1 (compaction), one CTA per tile: reads the tile's masks once and
+//   writes, in ascending order, the words at which any row of the tile is
+//   nonzero (the tile's "active words"), their count, and the tile's mask
+//   words at those positions staged [word][row] (rows past B read as zero),
+//   so that launch 2 copies them into shared memory in one coalesced pass.
+//   Launch 2, one CTA per (tile, 256 columns), one column per thread: walks
+//   only its tile's active-word list.  Each packed[w, v] load is coalesced
+//   along V and reused from a register for the tile's 4 rows, and a thread
+//   keeps 16 of them in flight: these gathered rows, not the popcounts, are
+//   what the kernel waits on.  The tile's staged mask words sit in shared
+//   memory [word][row], so the 4 rows come in one 16-byte broadcast load.
+//   At 4 rows a tile a listed word's group of four rows is nonzero by
+//   construction, so the list is the all-zero group skip.  Row tiles vary
+//   fastest in the grid, so the CTAs that share a column tile run together
+//   and share packed in L2.
+// The kernel is generic: it does not assume that a tile is one query.  The
+// height is a measured choice (PERF.md): at the CSL level-1 frontier 4 rows
+// beat 8 and 16 on an H100.  A shorter tile tests fewer rows at each active
+// word; a taller one shares each gathered packed word among more rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // columns of V per CTA, one per thread
-constexpr int kRows = 32;      // mask rows per CTA: accumulators per thread
-constexpr int kWords = 64;     // words of W staged per step
-constexpr int kStride = kRows + 4;  // 16-byte aligned rows, 4-way store conflicts
+constexpr int kRows = 4;           // mask rows a tile; the wrapper's ROWS
+constexpr int kThreads = 256;      // launch 2: columns of V per CTA
+constexpr int kCompactThreads = 512;
+constexpr int kWords = 64;         // active words staged per step
+constexpr int kBatch = 16;         // packed loads in flight per thread
 
+// Launch 1.  words (T, W) int32: active word indices, ascending, first
+// n_active[t] valid; staged (T, W, kRows) uint32: the tile's masks at them.
+__global__ void __launch_bounds__(kCompactThreads)
+compact_kernel(const uint32_t* __restrict__ masks, int B, int W,
+               int* __restrict__ words, int* __restrict__ n_active,
+               uint32_t* __restrict__ staged) {
+  __shared__ int warp_cnt[kCompactThreads / 32];
+  const int tile = blockIdx.x, b0 = tile * kRows;
+  const int nr = min(kRows, B - b0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned lt = (1u << lane) - 1u;
+  int* wl = words + (long long)tile * W;
+  uint4* st = reinterpret_cast<uint4*>(staged + (long long)tile * W * kRows);
+  const uint32_t* mb = masks + (long long)b0 * W;
+  int base = 0;
+  for (int w0 = 0; w0 < W; w0 += kCompactThreads) {
+    const int w = w0 + tid;
+    uint32_t m[kRows] = {0u, 0u, 0u, 0u};
+    if (w < W)
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < nr) m[r] = __ldg(mb + (long long)r * W + w);
+    const bool active = (m[0] | m[1] | m[2] | m[3]) != 0u;
+    const unsigned ballot = __ballot_sync(0xffffffffu, active);
+    if (lane == 0) warp_cnt[warp] = __popc(ballot);
+    __syncthreads();
+    int off = 0, total = 0;
+#pragma unroll
+    for (int i = 0; i < kCompactThreads / 32; ++i) {
+      const int c = warp_cnt[i];
+      off += i < warp ? c : 0;
+      total += c;
+    }
+    if (active) {
+      const int pos = base + off + __popc(ballot & lt);
+      wl[pos] = w;
+      st[pos] = make_uint4(m[0], m[1], m[2], m[3]);
+    }
+    base += total;
+    __syncthreads();  // warp_cnt is rewritten by the next chunk
+  }
+  if (tid == 0) n_active[tile] = base;
+}
+
+// Launch 2.
 __global__ void __launch_bounds__(kThreads)
-postings_kernel(const uint32_t* __restrict__ masks,
-                const uint32_t* __restrict__ packed,
-                int32_t* __restrict__ out, int B, int W, int V) {
-  __shared__ __align__(16) uint32_t sm[kWords * kStride];
-  const int b0 = blockIdx.x * kRows;
+sparse_counts_kernel(const uint32_t* __restrict__ staged,
+                     const int* __restrict__ words,
+                     const int* __restrict__ n_active,
+                     const uint32_t* __restrict__ packed,
+                     int32_t* __restrict__ out, int B, int W, int V) {
+  __shared__ uint4 sm[kWords];
+  __shared__ int sidx[kWords];
+  const int tile = blockIdx.x, b0 = tile * kRows;
   const long long v = (long long)blockIdx.y * kThreads + threadIdx.x;
   const bool col_ok = v < V;
+  const int n = n_active[tile];
+  const uint4* st4 = reinterpret_cast<const uint4*>(
+      staged + (long long)tile * W * kRows);
+  const int* wl = words + (long long)tile * W;
 
-  int acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0;
-
-  for (int w0 = 0; w0 < W; w0 += kWords) {
+  int acc[kRows] = {0, 0, 0, 0};
+  for (int j0 = 0; j0 < n; j0 += kWords) {
+    const int nw = min(kWords, n - j0);
     __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kRows * kWords; i += kThreads) {
-      const int r = i / kWords, w = i % kWords;  // coalesced along a row
-      uint32_t m = 0;
-      if (b0 + r < B && w0 + w < W) m = masks[(long long)(b0 + r) * W + w0 + w];
-      sm[w * kStride + r] = m;
-    }
+    // words past nw read as zero, so the last batch adds nothing for them
+    if (threadIdx.x < kWords)
+      sm[threadIdx.x] = threadIdx.x < nw ? st4[j0 + threadIdx.x]
+                                         : make_uint4(0u, 0u, 0u, 0u);
+    if (threadIdx.x < nw) sidx[threadIdx.x] = wl[j0 + threadIdx.x];
     __syncthreads();
     if (col_ok) {
-      const int nw = min(kWords, W - w0);
-      const uint32_t* p = packed + (long long)w0 * V + v;
-#pragma unroll 4
-      for (int w = 0; w < nw; ++w) {
-        const uint32_t pw = __ldg(p + (long long)w * V);
-        const uint4* m4 = reinterpret_cast<const uint4*>(sm + w * kStride);
+      for (int jb = 0; jb < nw; jb += kBatch) {
+        // kBatch independent loads in flight before any is used: the
+        // gather of packed rows, not the popcounts, is what waits
+        uint32_t pw[kBatch];
 #pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          const uint4 m = m4[q];
-          acc[4 * q + 0] += __popc(m.x & pw);
-          acc[4 * q + 1] += __popc(m.y & pw);
-          acc[4 * q + 2] += __popc(m.z & pw);
-          acc[4 * q + 3] += __popc(m.w & pw);
+        for (int u = 0; u < kBatch; ++u)
+          pw[u] = jb + u < nw ? __ldg(packed + (long long)sidx[jb + u] * V + v) : 0u;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const uint4 m = sm[jb + u];
+          acc[0] += __popc(m.x & pw[u]);
+          acc[1] += __popc(m.y & pw[u]);
+          acc[2] += __popc(m.z & pw[u]);
+          acc[3] += __popc(m.w & pw[u]);
         }
       }
     }
@@ -81,12 +150,28 @@ postings_kernel(const uint32_t* __restrict__ masks,
 
 }  // namespace
 
-extern "C" int postings_counts_launch(const void* masks, const void* packed,
-                                      void* out, int B, int W, int V,
-                                      void* stream) {
+// Launch 1 alone.  The wrapper allocates words (T, W) int32, n_active (T,)
+// int32 and staged (T, W, 4) int32, T = ceil(B / 4).
+extern "C" int postings_compact_launch(const void* masks, void* words,
+                                       void* n_active, void* staged, int B,
+                                       int W, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  compact_kernel<<<(B + kRows - 1) / kRows, kCompactThreads, 0,
+                   (cudaStream_t)stream>>>(
+      (const uint32_t*)masks, B, W, (int*)words, (int*)n_active,
+      (uint32_t*)staged);
+  return (int)cudaGetLastError();
+}
+
+// Launch 2 over the output of launch 1.
+extern "C" int postings_counts_launch(const void* staged, const void* words,
+                                      const void* n_active,
+                                      const void* packed, void* out, int B,
+                                      int W, int V, void* stream) {
   if (B <= 0 || V <= 0) return (int)cudaGetLastError();
   const dim3 grid((B + kRows - 1) / kRows, (V + kThreads - 1) / kThreads);
-  postings_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)masks, (const uint32_t*)packed, (int32_t*)out, B, W, V);
+  sparse_counts_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)staged, (const int*)words, (const int*)n_active,
+      (const uint32_t*)packed, (int32_t*)out, B, W, V);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,11 @@ from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_G, MAX_D = 16, 256
-TILE = 32                 # KV rows per tile in the kernel
-WAVES = 8                 # aim for this many CTAs per SM in launch 1
+TILE = 64                 # KV rows per tile in the kernel (32 for fp32 at
+                          # d > 128, which divides it)
+CTAS_PER_SM = 2           # launch 1 at bf16, d = 128: 110 KB of smem each
+WAVES = 16                # aim for this many full waves of launch 1 ...
+MIN_TILES = 64            # ... with at least this many tiles a CTA
 
 
 def _entry():
@@ -32,11 +35,15 @@ def _entry():
 
 
 def split_plan(b: int, hkv: int, s: int, sms: int):
-    """(split_len, n_split): S cut into ranges of whole tiles so that
-    B x Hkv x n_split CTAs fill the SMs about WAVES times over."""
+    """(split_len, n_split): S cut into ranges of whole 64-row tiles so
+    that B x Hkv x n_split CTAs fill the SMs, CTAS_PER_SM at a time, about
+    WAVES times over, unless that leaves a CTA fewer than MIN_TILES tiles
+    (each split is one more partial for launch 2 to merge).
+    ``split_len * n_split >= s`` and every split holds at least one row of
+    S."""
     tiles = -(-s // TILE)
-    want = max(1, -(-WAVES * sms // (b * hkv)))
-    per = -(-tiles // min(tiles, want))
+    want = max(1, -(-WAVES * CTAS_PER_SM * sms // (b * hkv)))
+    per = max(-(-tiles // min(tiles, want)), min(tiles, MIN_TILES))
     split_len = per * TILE
     return split_len, -(-s // split_len)
 

@@ -63,6 +63,22 @@ def postings_counts_ref(masks: torch.Tensor, packed: torch.Tensor, *,
     return out
 
 
+def active_words_ref(masks: torch.Tensor, rows: int):
+    """The postings kernel's compaction: for each tile of ``rows`` mask
+    rows (the last one ragged), the words at which any row is nonzero.
+
+    masks (B, W) int32 -> (words (T, W) int32, n (T,) int32), T =
+    ceil(B / rows): ``words[t, :n[t]]`` ascending, -1 after them."""
+    b, w = masks.shape
+    t = -(-b // rows)
+    tiles = torch.nn.functional.pad(masks != 0, (0, 0, 0, t * rows - b))
+    active = tiles.reshape(t, rows, w).any(dim=1)               # (T, W)
+    n = active.sum(dim=1, dtype=torch.int32)
+    order = torch.sort((~active).to(torch.int8), dim=1, stable=True).indices
+    first = torch.arange(w, device=masks.device)[None, :] < n[:, None]
+    return torch.where(first, order, -1).to(torch.int32), n
+
+
 def cooccur_counts_ref(x_l: torch.Tensor, x_r: torch.Tensor, *,
                        chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """C = x_l^T @ x_r over 0/1 incidence: x_l (D, Vl), x_r (D, Vr) int8

@@ -59,6 +59,10 @@ def smoke(monkeypatch):
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
     monkeypatch.setattr(postings, "postings_counts_cuda",
                         ref.postings_counts_ref)
+    # the compaction launch: its plain lists (nothing reads the staged words)
+    monkeypatch.setattr(postings, "active_words_cuda",
+                        lambda m: (*ref.active_words_ref(m, postings.ROWS),
+                                   None))
     monkeypatch.setattr(level_step, "level_step_cuda", ref.level_step_ref)
     # the launcher takes (M, K) and (N, K): the operands' .t() views
     monkeypatch.setattr(cooccur, "cooccur_counts_cuda",
@@ -106,6 +110,9 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert "[materialize] method=gemm" in out
     assert "[materialize] identical=True rows_checked=16" in out
     assert "materialize_methods=4 identical=True" in out
+    assert "kernel=postings_counts frontier=level-1 tile_rows=4 " in out
+    assert "compaction_ms=" in out
+    assert "kernel=postings_counts frontier=level-0" in out
 
 
 def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,

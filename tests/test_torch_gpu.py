@@ -5,11 +5,16 @@ file imports no jax, so it runs on a GPU host that has none:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import query_masks  # noqa: E402
 from repro_torch.core import QueryContext, QuerySpec, construct  # noqa: E402
 from repro_torch.core.inverted_index import from_uint32  # noqa: E402
 from repro_torch.core.query_context import pad_transposed  # noqa: E402
@@ -33,18 +38,56 @@ def _bits(rng, shape, device, density=0.5):
     return from_uint32(a, device)
 
 
+def _postings_masks(rng, kind, b, w, device):
+    if kind == "dense":
+        return _bits(rng, (b, w), device, density=0.7)
+    if kind == "zeros":
+        return torch.zeros((b, w), dtype=torch.int32, device=device)
+    if kind == "edge":                      # one nonzero word at W - 1
+        m = torch.zeros((b, w), dtype=torch.int32, device=device)
+        m[b - 1, w - 1] = -0x7FFF0000
+        return m
+    frac = {"query1": 0.01, "query5": 0.05}[kind]
+    return from_uint32(query_masks(rng, -(-b // 32), 32, w, frac)[:b], device)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "query1", "query5", "zeros",
+                                  "edge"])
 @pytest.mark.parametrize("b,w,v", [
-    (1, 1, 9), (37, 70, 515), (256, 300, 2049), (33, 129, 256)])
-def test_postings_kernel_matches_plain(cuda, b, w, v):
+    (1, 1, 9), (37, 70, 515), (256, 300, 2049), (33, 129, 256),
+    (256, 3001, 700)])
+def test_postings_kernel_matches_plain(cuda, b, w, v, kind):
     rng = np.random.default_rng(b + w + v)
-    masks = _bits(rng, (b, w), cuda, density=0.7)
+    masks = _postings_masks(rng, kind, b, w, cuda)
     packed = _bits(rng, (w, v), cuda)
     before = ops.LAUNCHES["postings_counts"]
     got = ops.postings_counts(masks, packed)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["postings_counts"] == before + 1
     assert torch.equal(got, ref.postings_counts_ref(masks, packed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 75, 256])   # 75: B not a tile multiple
+@pytest.mark.parametrize("kind", ["dense", "query1", "query5", "zeros",
+                                  "edge"])
+def test_postings_compaction_matches_plain(cuda, b, kind):
+    """The compaction launch lists each tile's active words as
+    ``ref.active_words_ref`` does and stages the tile's mask words there."""
+    from repro_torch.kernels import postings
+    rows, w = postings.ROWS, 1000
+    masks = _postings_masks(np.random.default_rng(b), kind, b, w, cuda)
+    words, n, staged = postings.active_words_cuda(masks)
+    torch.cuda.synchronize()
+    want_words, want_n = ref.active_words_ref(masks, rows)
+    assert torch.equal(n, want_n)
+    padded = torch.nn.functional.pad(masks, (0, 0, 0, (-b) % rows))
+    for t in range(words.shape[0]):
+        sel = words[t, :int(n[t])]
+        assert torch.equal(sel, want_words[t, :int(n[t])])
+        tile = padded[t * rows:(t + 1) * rows]
+        assert torch.equal(staged[t, :int(n[t])], tile[:, sel.long()].T)
 
 
 @pytest.mark.gpu
@@ -201,7 +244,24 @@ def _decode_inputs(rng, b, hq, hkv, d, s, device, dtype):
     ln = rng.integers(1, s + 1, (b,)).astype(np.int32)
     if b >= 3:                              # the length-0 rule, length 1
         ln[:2] = 0, 1
+    if b >= 4:                              # inside a 64-row tile
+        ln[2] = min(s, 64 * (s // 128) + 37)
     return q, k, v, torch.from_numpy(ln).to(device)
+
+
+def _assert_decode_close(got, want, dtype):
+    """fp32: 2e-5 abs + rel.  bf16: ``chip_smoke.py``'s rule, one bf16 step
+    of the output (2^-7 |want|) plus 1e-3 of the row's rms: both sides sum
+    in fp32 and round once."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    if dtype == torch.bfloat16:
+        rms = w.pow(2).mean(dim=(1, 2), keepdim=True).sqrt()
+        lim = 2.0 ** -7 * w.abs() + 1e-3 * rms
+    else:
+        lim = 2e-5 + 2e-5 * w.abs()
+    assert torch.isfinite(got.float()).all()
+    assert (err <= lim).all(), f"max abs err {float(err.max()):.3g}"
 
 
 @pytest.mark.gpu
@@ -212,6 +272,9 @@ def _decode_inputs(rng, b, hq, hkv, d, s, device, dtype):
     (2, 32, 2, 256, 100, 64),           # G = 16, d = 256
     (3, 2, 1, 8, 33, 512),              # d = 8, chunk > S
     (1, 32, 8, 128, 20000, 512),        # one row split across many CTAs
+    (4, 32, 8, 128, 4100, 512),         # lengths 0, 1, 2085 (mid-tile), more
+    (3, 12, 4, 40, 130, 64),            # G = 3, d not a multiple of 16
+    (2, 16, 2, 192, 700, 128),          # G = 8, 128 < d < 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda, b, hq, hkv, d, s, chunk,
@@ -224,8 +287,7 @@ def test_flash_decode_kernel_matches_plain(cuda, b, hq, hkv, d, s, chunk,
     assert ops.LAUNCHES["flash_decode"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_decode_ref(q, k, v, ln, chunk=chunk)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _assert_decode_close(got, want, dtype)
 
 
 @pytest.mark.gpu
