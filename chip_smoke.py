@@ -17,7 +17,8 @@ llama3-8b's decode cells.  Phases:
   1. device       the card (``nvidia-smi``), the kernels' build
   2. parity       the three CSL kernels == their plain versions, exact, at
                   small, ragged, sparse and mid shapes (2^15 docs x 2^13 terms,
-                  256 rows, one 128-term row block); methods "gemm" and
+                  256 rows, one group of 128-term row blocks), kernel 3 on
+                  both of its paths; methods "gemm" and
                   "popcount" served, and all four methods materialized,
                   at the mid size; kernels 4 and 5 == their plain
                   versions at odd shapes, within DOT_TOL / DECODE_TOL
@@ -25,14 +26,17 @@ llama3-8b's decode cells.  Phases:
                   for all four methods == the host oracle (queries, the
                   whole network and its statistics), then an ingest
   4. csl          the CSL-scale serving run, per BFS kernel method
-  5. materialize  the whole CSL network, method "pallas" (the kernel) and
+  5. materialize  the whole CSL network, method "pallas" (the kernel, one
+                  launch per GROUP row blocks, on its TMA path) and
                   "gemm" (``torch._int_mm``): identical, 16 rows == the
                   host oracle
   6. kernels      each CSL kernel timed at the main path's shapes beside
                   its plain version, its bound and a PyTorch yardstick
-                  (kernel 1 also with the work its row tiles walk, its
-                  compaction launch's time, and at the level-0
-                  frontier); then the CSL context is freed
+                  (kernels 1 and 2 at the level-0, level-1 and level-2
+                  frontiers of the first batch, kernel 1 with the work its
+                  row tiles walk and its compaction launch's time; kernel
+                  3 and ``torch._int_mm`` at 1, 2, 4 and 8 row blocks a
+                  launch); then the CSL context is freed
   7. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
@@ -248,13 +252,13 @@ def _check_postings(masks, packed, what):
         raise AssertionError(f"postings compaction != plain at {what}")
 
 
-def _check_level(masks, pt, terms, valid, visited, v, k, dedup):
+def _check_level(masks, packed, terms, valid, visited, v, k, dedup):
     import torch
     from repro_torch.kernels import ops, ref
-    got_w, got_i = ops.level_step(masks, pt, terms, valid, visited, v=v, k=k,
-                                  dedup=dedup)
+    got_w, got_i = ops.level_step(masks, packed, terms, valid, visited, v=v,
+                                  k=k, dedup=dedup)
     k_eff = min(k, v)
-    want_w, want_i = ref.level_step_ref(masks, pt, terms, valid, visited,
+    want_w, want_i = ref.level_step_ref(masks, packed, terms, valid, visited,
                                         v=v, k=k_eff, dedup=dedup)
     if not (torch.equal(got_w[:, :k_eff], want_w)
             and torch.equal(got_i[:, :k_eff], want_i)
@@ -263,6 +267,32 @@ def _check_level(masks, pt, terms, valid, visited, v, k, dedup):
         raise AssertionError(f"level_step kernel != plain version at "
                              f"rows={masks.shape[0]} v={v} k={k} "
                              f"dedup={dedup}")
+
+
+def _check_cooccur(xl, xr, path, what):
+    """Kernel 3 == its plain version, launched on ``path``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    before = dict(ops.COOCCUR_PATHS)
+    got = ops.cooccur_counts(xl, xr)
+    if ops.COOCCUR_PATHS[path] != before[path] + 1:
+        raise AssertionError(f"cooccur kernel did not take its {path} path "
+                             f"at {what}: {ops.COOCCUR_PATHS}")
+    if not torch.equal(got, ref.cooccur_counts_ref(xl, xr)):
+        raise AssertionError(f"cooccur kernel != plain at {what}")
+
+
+def structured_operand(kind, rows, d, dev):
+    """A (rows, d) int8 0/1 operand of kernel 3: all ones (every count is
+    d), or a shifted identity (row i holds doc 37 i mod d only), where a
+    wrong swizzle or descriptor would move counts to other cells."""
+    import torch
+    if kind == "ones":
+        return torch.ones((rows, d), dtype=torch.int8, device=dev)
+    x = torch.zeros((rows, d), dtype=torch.int8, device=dev)
+    i = torch.arange(rows, device=dev)
+    x[i, (i * 37) % d] = 1
+    return x
 
 
 # kernel 4: fp32 sums in another order, 1e-5 (the reference's tolerance);
@@ -333,7 +363,7 @@ def phase_parity(dev):
     from repro_torch.core import (QueryContext, build_host_index,
                                   from_uint32, materialize, unpack_bitmap)
     from repro_torch.core.cooccurrence import _expand_level, initial_state
-    from repro_torch.core.query_context import pad_transposed
+    from repro_torch.core.materialize import GROUP
     from repro_torch.data import synthetic_csl
     from repro_torch.kernels import ops, ref
     from repro_torch.serve import CoocEngine
@@ -361,23 +391,34 @@ def phase_parity(dev):
     _check_postings(edge, packed, "one word at W - 1")
     cases += 2
     # level step: ragged, k > v, dedup off, invalid rows, pad columns,
-    # k above the column tile, batch-major visited
+    # k near and above the 256-column tile, batch-major visited
     for q, b, v, w, k, dedup in [(1, 5, 97, 7, 6, True),
                                  (1, 3, 40, 3, 50, False),
                                  (4, 16, 1000, 130, 16, True),
-                                 (2, 8, 300, 40, 200, True)]:
+                                 (2, 8, 300, 40, 200, True),
+                                 (2, 5, 700, 60, 300, True)]:
         masks, packed, terms, valid, visited = _level_args(rng, q, b, v, w,
                                                            dev)
-        _check_level(masks, pad_transposed(packed), terms, valid, visited,
-                     v, k, dedup)
+        _check_level(masks, packed, terms, valid, visited, v, k, dedup)
         cases += 1
+    # sparse masks: query-structured (1% and 5% of the words; 5 rows a
+    # query, so 4-row tiles straddle queries), and all zero
+    for q, b, v, w, frac in [(8, 32, 2500, 3001, 0.01), (6, 5, 700, 1000,
+                                                         0.05)]:
+        _, packed, terms, valid, visited = _level_args(rng, q, b, v, w, dev)
+        masks = from_uint32(query_masks(rng, q, b, w, frac), dev)
+        _check_level(masks, packed, terms, valid, visited, v, TOPK, True)
+        _check_level(torch.zeros_like(masks), packed, terms, valid, visited,
+                     v, TOPK, True)
+        cases += 2
     # forced ties: identical postings columns, every count equal
     masks, packed, terms, valid, visited = _level_args(rng, 1, 8, 300, 5, dev)
     packed = packed[:, :1].repeat(1, 300).contiguous()
-    _check_level(masks, pad_transposed(packed), terms, valid, visited,
-                 300, 16, True)
-    # pad columns: every real column visited, so all real counts are -1
-    _check_level(masks, pad_transposed(packed), terms, torch.ones_like(valid),
+    _check_level(masks, packed, terms, valid, visited, 300, 16, True)
+    # padding columns past v: every real column visited, so all real counts
+    # are -1 and the padding (-2) must never be returned
+    wide = torch.cat([packed, packed[:, :20]], dim=1)
+    _check_level(masks, wide, terms, torch.ones_like(valid),
                  torch.ones_like(visited), 300, 16, True)
     cases += 2
 
@@ -394,26 +435,35 @@ def phase_parity(dev):
                                                     ctx.index.packed)):
         raise AssertionError("postings kernel != plain at the mid size")
     _check_postings(st.masks, ctx.index.packed, "the mid frontier")
-    _check_level(st.masks, ctx.packed_t_pad(), st.terms, st.valid,
+    _check_level(st.masks, ctx.index.packed, st.terms, st.valid,
                  st.visited, MID_TERMS, TOPK, True)
     cases += 2
-    # co-occurrence counts: ragged and whole tiles, then a real row block
-    # of the mid index against its dense incidence
-    for d, vl, vr in [(33, 17, 9), (300, 200, 100), (1024, 128, 256)]:
+    # co-occurrence counts, each on the path it must take: rows that are
+    # not 16-byte aligned take the byte fallback; ragged M, N and K, K
+    # below one stage and a group of four row blocks take the TMA path
+    for d, vl, vr, path in [(33, 17, 9, "bytes"), (300, 200, 100, "bytes"),
+                            (1024, 128, 256, "tma"), (4160, 130, 1000, "tma"),
+                            (32, 600, 300, "tma"), (416, 384, 700, "tma"),
+                            (4096, 512, 2048, "tma")]:
         xl = torch.from_numpy((rng.random((vl, d)) < 0.15).astype(np.int8)
                               ).to(dev).t()
         xr = torch.from_numpy((rng.random((vr, d)) < 0.15).astype(np.int8)
                               ).to(dev).t()
-        if not torch.equal(ops.cooccur_counts(xl, xr),
-                           ref.cooccur_counts_ref(xl, xr)):
-            raise AssertionError(f"cooccur kernel != plain at {(d, vl, vr)}")
+        _check_cooccur(xl, xr, path, f"{(d, vl, vr)}")
         cases += 1
-    xl = unpack_bitmap(ctx.packed_t_pad()[:ROW_TILE, :ctx.index.n_words],
-                       torch.int8).t()
-    if not torch.equal(ops.cooccur_counts(xl, ctx.x_dense()),
-                       ref.cooccur_counts_ref(xl, ctx.x_dense())):
-        raise AssertionError("cooccur kernel != plain at a mid row block")
-    cases += 1
+    # a real group of row blocks of the mid index against its dense
+    # incidence, and structured operands against torch._int_mm
+    xl = unpack_bitmap(ctx.packed_t_pad()[:GROUP * ROW_TILE,
+                                          :ctx.index.n_words], torch.int8).t()
+    _check_cooccur(xl, ctx.x_dense(), "tma", "a mid group of row blocks")
+    for kind in ("ones", "identity"):
+        a = structured_operand(kind, GROUP * ROW_TILE, 8192, dev)
+        b = structured_operand(kind, 2304, 8192, dev)
+        got = ops.cooccur_counts(a.t(), b.t())
+        if not torch.equal(got, torch._int_mm(a, b.t())):
+            raise AssertionError(f"cooccur kernel != torch._int_mm on "
+                                 f"{kind} operands")
+    cases += 3
     say("parity", cases=cases, exact=True,
         mid_rows=st.masks.shape[0], mid_words=ctx.index.n_words,
         mid_terms=MID_TERMS)
@@ -594,10 +644,12 @@ def phase_csl(dev):
 
 def phase_materialize(dev, ctx, hidx, launches):
     """The whole CSL network at full width: top-16 for each of the 65,536
-    terms over all 396,209 docs, through the kernel (one launch per
-    128-term row block) and through ``torch._int_mm`` (method "gemm")."""
+    terms over all 396,209 docs, through the kernel (one launch per GROUP
+    128-term row blocks, each on the TMA path) and through
+    ``torch._int_mm`` (method "gemm", one call per row block)."""
     import torch
     from repro_torch.core import global_statistics, materialize
+    from repro_torch.core.materialize import GROUP
     from repro_torch.kernels import ops
 
     v = ctx.vocab_size
@@ -609,6 +661,7 @@ def phase_materialize(dev, ctx, hidx, launches):
         x_dense_strides=xd.stride(), unpack_count=ctx.unpack_count)
 
     n_blocks = -(-v // ROW_TILE)
+    n_groups = -(-v // (GROUP * ROW_TILE))
     nets, secs = {}, {}
     for method in ("pallas", "gemm"):
         torch.cuda.synchronize()
@@ -621,20 +674,24 @@ def phase_materialize(dev, ctx, hidx, launches):
         torch.cuda.synchronize()
         secs[method] = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
+        paths = dict(ops.COOCCUR_PATHS)
         extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         if method == "pallas":
-            if counts["cooccur_counts"] != n_blocks:
+            if not counts["cooccur_counts"] == paths["tma"] == n_groups:
                 raise AssertionError(f"{counts['cooccur_counts']} cooccur "
-                                     f"launches for {n_blocks} row blocks")
+                                     f"launches ({paths}) for {n_groups} "
+                                     f"groups of {GROUP} row blocks")
             launches["cooccur_counts"] = counts["cooccur_counts"]
         if extra_gb > xd.numel() / 2e9:
             # a copy of the 26 GB operand would show here
             raise AssertionError(f"method {method} took {extra_gb:.1f} GB "
                                  "beyond the resident artifacts")
         say("materialize", method=method, k=MAT_K, row_blocks=n_blocks,
+            group=GROUP if method == "pallas" else 1,
             seconds=f"{secs[method]:.3f}",
             rows_per_s=f"{v / secs[method]:.1f}",
-            launches=json.dumps(counts), transient_gb=f"{extra_gb:.3f}")
+            launches=json.dumps(counts), cooccur_paths=json.dumps(paths),
+            transient_gb=f"{extra_gb:.3f}")
     if not same_network(nets["pallas"], nets["gemm"]):
         raise AssertionError("CSL materialize: pallas != gemm")
 
@@ -682,17 +739,23 @@ def sparse_work(masks, v):
 
 
 def phase_kernels(dev, ctx, seeds, launches):
-    """Each kernel at the main path's shapes: a level-1 frontier of the
-    first CSL batch, through the same code the engine runs."""
+    """Each kernel at the main path's shapes: kernels 1 and 2 at the
+    level-0, level-1 and level-2 frontiers of the first CSL batch, through
+    the same code the engine runs (the JSON entries are level 1's); kernel
+    3 at groups of 1, 2, 4 and 8 row blocks of the whole-network sweep
+    (the JSON entry is GROUP's, the sweep's own)."""
     import torch
     from repro_torch.core import unpack_bitmap
     from repro_torch.core.cooccurrence import _expand_level, initial_state
+    from repro_torch.core.materialize import GROUP
     from repro_torch.kernels import ops, postings, ref
 
     seed_rows = torch.tensor(seeds[:Q_BATCH]).reshape(Q_BATCH, 1)
-    st0 = initial_state(ctx.index, seed_rows, beam=BEAM)
-    st, _ = _expand_level(ctx.index, st0, Q_BATCH, TOPK, True, "fused",
-                          ctx.operands("fused"))
+    fronts = [initial_state(ctx.index, seed_rows, beam=BEAM)]
+    for _ in range(2):
+        fronts.append(_expand_level(ctx.index, fronts[-1], Q_BATCH, TOPK,
+                                    True, "fused", ctx.operands("fused"))[0])
+    st = fronts[1]                      # the level-1 frontier
     packed, pt = ctx.index.packed, ctx.packed_t_pad()
     r, w = st.masks.shape
     v = ctx.vocab_size
@@ -707,13 +770,8 @@ def phase_kernels(dev, ctx, seeds, launches):
 
     # postings counts
     got = ops.postings_counts(st.masks, packed)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    want = ref.postings_counts_ref(st.masks, packed, chunk_bytes=2 << 30)
-    t1.record()
-    t1.synchronize()
-    plain_ms = t0.elapsed_time(t1)
+    want, plain_ms = _event_ms(lambda: ref.postings_counts_ref(
+        st.masks, packed, chunk_bytes=2 << 30))
     err = int((got - want).abs().max())
     if err != 0:
         raise AssertionError("postings kernel != plain at the CSL shapes")
@@ -746,17 +804,22 @@ def phase_kernels(dev, ctx, seeds, launches):
         nonzero_words=nonzero_words, issued_popcounts=issued,
         needed_popcounts=nonzero_words * v,
         compaction_ms=f"{cuda_ms(lambda: postings.active_words_cuda(st.masks), 5):.4f}")
-    # the level-0 frontier: one nonzero row a query, so almost no
-    # popcounts; its time is the gather of the active packed rows
-    m0 = st0.masks
-    if not torch.equal(postings.postings_counts_cuda(m0, packed),
-                       ref.postings_counts_ref(m0, packed, chunk_bytes=2 << 30)):
-        raise AssertionError("postings kernel != plain at the level-0 frontier")
-    active_0, issued_0 = sparse_work(m0, v)
-    say("kernels", kernel="postings_counts", frontier="level-0",
-        tile_rows=postings.ROWS, active_words=active_0,
-        nonzero_words=int((m0 != 0).sum()), issued_popcounts=issued_0,
-        ms=f"{cuda_ms(lambda: postings.postings_counts_cuda(m0, packed), 5):.4f}")
+    # the level-0 frontier (one nonzero row a query, so almost no
+    # popcounts: its time is the gather of the active packed rows) and
+    # the level-2 frontier
+    for level in (0, 2):
+        m = fronts[level].masks
+        if not torch.equal(postings.postings_counts_cuda(m, packed),
+                           ref.postings_counts_ref(m, packed,
+                                                   chunk_bytes=2 << 30)):
+            raise AssertionError(f"postings kernel != plain at the "
+                                 f"level-{level} frontier")
+        active_l, issued_l = sparse_work(m, v)
+        ms_l = cuda_ms(lambda: postings.postings_counts_cuda(m, packed), 5)
+        say("kernels", kernel="postings_counts", frontier=f"level-{level}",
+            tile_rows=postings.ROWS, active_words=active_l,
+            nonzero_words=int((m != 0).sum()), issued_popcounts=issued_l,
+            ms=f"{ms_l:.4f}")
     out.append({"name": "postings_counts", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/postings.cu",
                 "replaces": "src/repro/kernels/postings.py:37",
@@ -769,67 +832,89 @@ def phase_kernels(dev, ctx, seeds, launches):
         int8_mm_ms=f"{lib_ms:.4f}", int8_mm_max_abs_err=lib_err)
     del got
 
-    # fused level step
-    args = (st.masks, pt, st.terms, st.valid, st.visited)
-    got = ops.level_step(*args, v=v, k=TOPK, dedup=True)
-    t0.record()
-    want = ref.level_step_ref(*args, v=v, k=TOPK, dedup=True,
-                              chunk_bytes=2 << 30)
-    t1.record()
-    t1.synchronize()
-    plain_ms = t0.elapsed_time(t1)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError("level_step kernel != plain at the CSL shapes")
-    err = int((got[0] - want[0]).abs().max())
-    ms = cuda_ms(lambda: ops.level_step(*args, v=v, k=TOPK, dedup=True), 5)
-    vis_bytes = st.visited.numel() + 2 * r * 4      # visited, terms, valid
-    bound_ms, bound_by, n_ops, n_bytes = _bound(
-        nonzero_words, active_words, 2 * r * TOPK * 4 + vis_bytes, r * w * 4,
-        v, sms, hz)
-    out.append({"name": "level_step", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/level_step.cu",
-                "replaces": "src/repro/kernels/level_step.py:109",
-                "launches": launches["level_step"], "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None})
-    say("kernels", kernel="level_step", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, popcounts=n_ops, bytes=n_bytes)
+    # fused level step, at each frontier, over the index's own postings
+    entry = None
+    for level, stf in enumerate(fronts):
+        args = (stf.masks, packed, stf.terms, stf.valid, stf.visited)
+        got = ops.level_step(*args, v=v, k=TOPK, dedup=True)
+        want, plain_ms = _event_ms(lambda: ref.level_step_ref(
+            *args, v=v, k=TOPK, dedup=True, chunk_bytes=2 << 30))
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"level_step kernel != plain at the CSL "
+                                 f"level-{level} frontier")
+        err = int((got[0] - want[0]).abs().max())
+        ms = cuda_ms(lambda: ops.level_step(*args, v=v, k=TOPK, dedup=True),
+                     5)
+        nzl = stf.masks != 0
+        vis_bytes = stf.visited.numel() + 2 * r * 4  # visited, terms, valid
+        bound_ms, bound_by, n_ops, n_bytes = _bound(
+            int(nzl.sum()), int(nzl.any(dim=0).sum()),
+            2 * r * TOPK * 4 + vis_bytes, r * w * 4, v, sms, hz)
+        say("kernels", kernel="level_step", frontier=f"level-{level}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, popcounts=n_ops,
+            bytes=n_bytes, active_words=sparse_work(stf.masks, v)[0])
+        if level == 1:
+            entry = {"name": "level_step", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/level_step.cu",
+                     "replaces": "src/repro/kernels/level_step.py:109",
+                     "launches": launches["level_step"], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        del got, want
+    out.append(entry)
 
-    # co-occurrence counts: the first CSL row block of materialization, its
-    # unpacked masks (ROW_TILE, D) against the whole dense incidence
-    x_l = unpack_bitmap(pt[:ROW_TILE, :w], torch.int8).t()
-    got = ops.cooccur_counts(x_l, xd)
-    lib = torch._int_mm(x_l.t(), xd)
-    err = int((got - lib).abs().max())
-    del lib
-    t0.record()
-    want = ref.cooccur_counts_ref(x_l, xd, chunk_bytes=2 << 30)
-    t1.record()
-    t1.synchronize()
-    plain_ms = t0.elapsed_time(t1)
-    if err != 0 or not torch.equal(got, want):
-        raise AssertionError("cooccur kernel != _int_mm / plain at the CSL "
-                             "row block")
-    del got, want
-    ms = cuda_ms(lambda: ops.cooccur_counts(x_l, xd), 5)
-    lib_ms = cuda_ms(lambda: torch._int_mm(x_l.t(), xd), 5)
+    # co-occurrence counts: the first 1, 2, 4 and 8 row blocks of the
+    # sweep, their unpacked masks (g * ROW_TILE, D) against the whole dense
+    # incidence, beside torch._int_mm on the same operands
     d, vp = xd.shape
-    n_ops = 2 * ROW_TILE * d * vp
-    n_bytes = ROW_TILE * d + d * vp + ROW_TILE * vp * 4
-    bound_ms, bound_by = _bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
-    out.append({"name": "cooccur_counts", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/cooccur.cu",
-                "replaces": "src/repro/kernels/cooccur.py:36",
-                "launches": launches["cooccur_counts"], "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms})
-    say("kernels", kernel="cooccur_counts", rows=ROW_TILE, docs=d,
-        terms=vp, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        plain_slice=f"all {vp} columns, float64, 2 GiB chunks",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, int8_ops=n_ops,
-        bytes=n_bytes, int8_mm_ms=f"{lib_ms:.4f}",
-        tops=f"{n_ops / ms / 1e9:.1f}")
+    entry = None
+    for g in sorted({1, 2, 4, 8, GROUP}):
+        m = g * ROW_TILE
+        x_l = unpack_bitmap(pt[:m, :w], torch.int8).t()
+        before = ops.COOCCUR_PATHS["tma"]
+        got = ops.cooccur_counts(x_l, xd)
+        path = "tma" if ops.COOCCUR_PATHS["tma"] == before + 1 else "bytes"
+        if path != "tma":
+            raise AssertionError(f"cooccur kernel took its {path} path at "
+                                 f"{m} CSL rows")
+        lib = torch._int_mm(x_l.t(), xd)
+        err = int((got - lib).abs().max())
+        del lib
+        plain_ms = None
+        if g in (1, GROUP):
+            want, plain_ms = _event_ms(lambda: ref.cooccur_counts_ref(
+                x_l, xd, chunk_bytes=2 << 30))
+            if not torch.equal(got, want):
+                raise AssertionError(f"cooccur kernel != plain at {m} CSL "
+                                     "rows")
+            del want
+        if err != 0:
+            raise AssertionError(f"cooccur kernel != _int_mm at {m} CSL rows")
+        del got
+        ms = cuda_ms(lambda: ops.cooccur_counts(x_l, xd), 3)
+        lib_ms = cuda_ms(lambda: torch._int_mm(x_l.t(), xd), 3)
+        n_ops = 2 * m * d * vp
+        n_bytes = m * d + d * vp + m * vp * 4
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+        say("kernels", kernel="cooccur_counts", row_blocks=g, rows=m,
+            docs=d, terms=vp, path=path, ms=f"{ms:.4f}",
+            ms_per_row_block=f"{ms / g:.4f}",
+            plain_ms="not-timed" if plain_ms is None else f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, int8_ops=n_ops,
+            bytes=n_bytes, int8_mm_ms=f"{lib_ms:.4f}",
+            int8_mm_ms_per_row_block=f"{lib_ms / g:.4f}",
+            tops=f"{n_ops / ms / 1e9:.1f}")
+        if g == GROUP:
+            entry = {"name": "cooccur_counts", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/cooccur.cu",
+                     "replaces": "src/repro/kernels/cooccur.py:36",
+                     "launches": launches["cooccur_counts"],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms}
+        del x_l
+    out.append(entry)
     return out
 
 

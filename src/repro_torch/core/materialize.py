@@ -12,11 +12,13 @@ before the next block starts.
 Counts come from ``method=``:
 
 * ``"pallas"`` — the hand-written int8 tensor-core co-occurrence kernel
-  (``kernels.ops.cooccur_counts``): one launch per row block, the block's
-  unpacked masks against the whole dense incidence (``x_dense``).  The
-  reference streams column tiles through a running top-k merge instead;
-  one exact top-k over the block's counts gives the same values and tie
-  order (the reference's own docstring says the two orders agree);
+  (``kernels.ops.cooccur_counts``): one launch per :data:`GROUP`
+  consecutive row blocks, their unpacked masks against the whole dense
+  incidence (``x_dense``), so that one pass over ``x_dense`` serves
+  ``GROUP`` blocks.  The reference streams column tiles through a running
+  top-k merge instead; one exact top-k over each row's counts gives the
+  same values and tie order (the reference's own docstring says the two
+  orders agree);
 * ``"gemm"``, ``"popcount"``, ``"fused"`` and any registered method — the
   count-method registry, one call per row block.
 
@@ -50,6 +52,12 @@ from repro_torch.core.query_context import QueryContext, not_ported
 from repro_torch.kernels import ops
 
 
+#: row blocks of method "pallas" per co-occurrence launch: one pass over
+#: ``x_dense`` serves GROUP * row_tile terms.  Chosen by measurement among
+#: 1, 2, 4 and 8 on an H100 (chip_smoke.py, phase kernels; PERF.md)
+GROUP = 4
+
+
 def _round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
 
@@ -59,7 +67,8 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
                 k: int, bm: int, method: str):
     """Top-k neighbors of terms ``[r0, r0 + bm)``: (weights, ids), both
     (bm, k), weight -1 marking empty slots.  ``rows`` is the (V, W)
-    transposed postings; rows past V have all-zero masks."""
+    transposed postings; rows past V have all-zero masks.  ``bm`` is a
+    multiple of the row tile: one row block, or a group of them."""
     v = pidx.vocab_size
     masks = rows.new_zeros((bm, rows.shape[1]))
     blk = rows[r0:r0 + bm]
@@ -99,7 +108,11 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     ``i*k + j`` is term ``i``'s j-th heaviest neighbor (``src=i``), ties
     broken toward the lower term id, self-pairs and zero counts invalid
     (dst -1, weight 0).  Beyond the cached incidence and this O(V·k)
-    result, the peak transient is one row block's (row_tile, V) counts.
+    result, the peak transient is one row block's (row_tile, V) counts;
+    with ``method="pallas"`` it is one group's: GROUP x (row_tile, V)
+    int32 counts and the group's (GROUP * row_tile, D) int8 masks (at the
+    CSL scale, GROUP = 4 and row_tile = 128: 134 MB and 203 MB, and two
+    int32 bit intermediates of 811 MB each while the masks are unpacked).
     """
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -143,8 +156,8 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
             return hit
 
     if ctx is not None:
-        # the mask rows are the fused level step's padded transpose: no
-        # second transposed copy of the postings
+        # the mask rows are the context's padded transpose: no second
+        # transposed copy of the postings
         rows = ctx.packed_t_pad()[:v, :w]
     else:
         rows = pidx.packed.T
@@ -164,9 +177,11 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
                              f"({w},) (one uint32 per 32 doc slots)")
 
     ws, ids = [], []
-    for r0 in range(0, _round_up(v, bm), bm):
+    n_rows = _round_up(v, bm)
+    step = GROUP * bm if method == "pallas" else bm
+    for r0 in range(0, n_rows, step):
         w_b, i_b = _block_topk(pidx, rows, scope_mask, operands, r0, k=k,
-                               bm=bm, method=method)
+                               bm=min(step, n_rows - r0), method=method)
         ws.append(w_b)
         ids.append(i_b)
     run_w = torch.cat(ws)[:v]                                   # (V, k)

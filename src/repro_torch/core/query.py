@@ -11,7 +11,8 @@ The built-in count methods:
 * ``"pallas"``   — the same counts through the hand-written CUDA postings
   kernel (``kernels.ops.postings_counts``; its plain version on the CPU);
 * ``"fused"``    — the whole level step (counts + masks + top-k) through
-  the hand-written CUDA level-step kernel (``kernels.ops.level_step``).
+  the hand-written CUDA level-step kernel (``kernels.ops.level_step``),
+  over the index's own postings: it needs no context artifact.
 
 A method's ``fn(index, masks, operands)`` returns the (R, V) counts; an
 optional ``level_fn`` replaces the counts -> masks -> top-k chain with one
@@ -127,17 +128,16 @@ def _pallas_counts(index, masks, operands):
 
 
 def _fused_level(index, masks, terms, valid, visited, operands, *, k, dedup):
-    """One ``kernels.ops.level_step`` call over the pre-padded transposed
-    postings: counts, masking and top-k never leave the kernel."""
-    return ops.level_step(masks, operands["packed_t_pad"], terms, valid,
-                          visited, v=index.vocab_size, k=k, dedup=dedup)
+    """One ``kernels.ops.level_step`` call over the index's own postings:
+    counts, masking and top-k never leave the kernel."""
+    return ops.level_step(masks, index.packed, terms, valid, visited,
+                          v=index.vocab_size, k=k, dedup=dedup)
 
 
 register_count_method("gemm", ("x_dense",), _gemm_counts)
 register_count_method("popcount", (), _popcount_counts)
 register_count_method("pallas", (), _pallas_counts)
-register_count_method("fused", ("packed_t_pad",), _popcount_counts,
-                      level_fn=_fused_level)
+register_count_method("fused", (), _popcount_counts, level_fn=_fused_level)
 
 
 # ---------------------------------------------------------------------------

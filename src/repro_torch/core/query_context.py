@@ -9,8 +9,8 @@ per ingest epoch —
   chunks; ``unpack_count`` counts its builds;
 * ``packed_t()``     the transposed postings (V, W);
 * ``packed_t_pad()`` the transposed postings padded to V % 8 == 0 and
-  W % 128 == 0, the fused level step's operand (padded here, once per
-  epoch, never per query);
+  W % 128 == 0 (the reference's fused level-step operand; here the mask
+  rows of materialization), padded once per epoch;
 
 plus named document scopes (``(W,)`` bitmaps ANDed into the seed filters),
 the all-ones ``full_mask`` (the unscoped scope operand), a generic
@@ -212,9 +212,10 @@ class QueryContext:
                               lambda: self._index.packed.T.contiguous())
 
     def packed_t_pad(self) -> torch.Tensor:
-        """Transposed postings pre-padded for the fused level step —
-        (V_pad, W_pad) with V to a multiple of 8 and W to 128, zero bits
-        in the padding — built once per epoch so queries pad nothing."""
+        """Transposed postings pre-padded as the reference's fused level
+        step takes them — (V_pad, W_pad) with V to a multiple of 8 and W
+        to 128, zero bits in the padding — built once per epoch; here the
+        mask rows of :func:`~repro_torch.core.materialize.materialize`."""
         return self._artifact("packed_t_pad",
                               lambda: pad_transposed(self._index.packed))
 

@@ -3,11 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with :mod:`ctypes`; no PyTorch header
 is compiled, so a build takes seconds.  Libraries go to ``kernels/_build``
-(never committed), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  Nothing is built
-at import: the first launch of a kernel builds it, or a caller builds all
-of them up front with :func:`build` (one ``nvcc`` per source, all started
-together).
+(never committed), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+an unchanged one is reused.  Nothing is built at import: the first launch
+of a kernel builds it, or a caller builds all of them up front with
+:func:`build` (one ``nvcc`` per source, all started together).
 """
 from __future__ import annotations
 
@@ -46,9 +46,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    of every shared header (``csrc/*.cuh``) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:

@@ -3,9 +3,12 @@
 
 Replaces ``repro/kernels/cooccur.py::cooccur_gemm_pallas``: integer
 co-occurrence counts of 0/1 incidence operands on the int8 tensor cores.
-Its plain version is :func:`repro_torch.kernels.ref.cooccur_counts_ref`;
-callers go through :func:`repro_torch.kernels.ops.cooccur_counts`, which
-picks one by the tensor's device.
+Operands that TMA can describe (16-byte aligned bases and row strides:
+every operand of the main path) take the ``wgmma`` kernel fed by TMA;
+others take an ``mma.sync`` kernel with byte loads.  Its plain version is
+:func:`repro_torch.kernels.ref.cooccur_counts_ref`; callers go through
+:func:`repro_torch.kernels.ops.cooccur_counts`, which picks one by the
+tensor's device.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import torch
 
 from repro_torch.kernels import build
 
-_MAX_COL_TILES = 65535   # grid.y limit; 128 columns per tile
+_MAX_COL_TILES = 65535   # grid.y limit; 128 columns per tile of the fallback
+#: what the C entry point reports it launched
+PATHS = {1: "tma", 2: "bytes"}
 
 
 def _entry():
@@ -23,17 +28,21 @@ def _entry():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def cooccur_counts_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cooccur_counts_cuda(a: torch.Tensor, b: torch.Tensor):
     """C[m, n] = sum_k a[m, k] * b[n, k] as int32.
 
     a (M, K) and b (N, K) int8 on one CUDA device, each with K contiguous
     (``stride(1) == 1``; any row stride).  Neither operand is copied or
-    padded: the kernel masks the ragged edges itself."""
+    padded: the kernel masks the ragged edges itself.  Returns (C, path),
+    path ``"tma"`` (the ``wgmma`` kernel) or ``"bytes"`` (the fallback),
+    as the launch reports it; ``None`` if nothing launched (M, N or K is
+    0)."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"cooccur kernel takes int8 0/1 operands, got "
                         f"{a.dtype} and {b.dtype}")
@@ -51,9 +60,10 @@ def cooccur_counts_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if (n + 127) // 128 > _MAX_COL_TILES:
         raise ValueError(f"N={n} exceeds the kernel's column grid")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    path = ctypes.c_int(0)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                      a.stride(0), b.stride(0), stream)
+                      a.stride(0), b.stride(0), ctypes.byref(path), stream)
     build.check(rc, "cooccur_counts")
-    return out
+    return out, PATHS.get(path.value)

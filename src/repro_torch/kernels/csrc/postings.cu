@@ -27,7 +27,8 @@
 //   words at those positions staged [word][row] (rows past B read as zero),
 //   so that launch 2 copies them into shared memory in one coalesced pass.
 //   Launch 2, one CTA per (tile, 256 columns), one column per thread: walks
-//   only its tile's active-word list.  Each packed[w, v] load is coalesced
+//   only its tile's active-word list (the loop of active_words.cuh, which
+//   the fused level step shares): each packed[w, v] load is coalesced
 //   along V and reused from a register for the tile's 4 rows, and a thread
 //   keeps 16 of them in flight: these gathered rows, not the popcounts, are
 //   what the kernel waits on.  The tile's staged mask words sit in shared
@@ -43,13 +44,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "active_words.cuh"
+
 namespace {
 
-constexpr int kRows = 4;           // mask rows a tile; the wrapper's ROWS
+using active_words::kRows;         // mask rows a tile; the wrapper's ROWS
 constexpr int kThreads = 256;      // launch 2: columns of V per CTA
 constexpr int kCompactThreads = 512;
-constexpr int kWords = 64;         // active words staged per step
-constexpr int kBatch = 16;         // packed loads in flight per thread
 
 // Launch 1.  words (T, W) int32: active word indices, ascending, first
 // n_active[t] valid; staged (T, W, kRows) uint32: the tile's masks at them.
@@ -102,46 +103,12 @@ sparse_counts_kernel(const uint32_t* __restrict__ staged,
                      const int* __restrict__ n_active,
                      const uint32_t* __restrict__ packed,
                      int32_t* __restrict__ out, int B, int W, int V) {
-  __shared__ uint4 sm[kWords];
-  __shared__ int sidx[kWords];
+  __shared__ active_words::Stage sm;
   const int tile = blockIdx.x, b0 = tile * kRows;
   const long long v = (long long)blockIdx.y * kThreads + threadIdx.x;
-  const bool col_ok = v < V;
-  const int n = n_active[tile];
-  const uint4* st4 = reinterpret_cast<const uint4*>(
-      staged + (long long)tile * W * kRows);
-  const int* wl = words + (long long)tile * W;
-
   int acc[kRows] = {0, 0, 0, 0};
-  for (int j0 = 0; j0 < n; j0 += kWords) {
-    const int nw = min(kWords, n - j0);
-    __syncthreads();  // the previous chunk is consumed
-    // words past nw read as zero, so the last batch adds nothing for them
-    if (threadIdx.x < kWords)
-      sm[threadIdx.x] = threadIdx.x < nw ? st4[j0 + threadIdx.x]
-                                         : make_uint4(0u, 0u, 0u, 0u);
-    if (threadIdx.x < nw) sidx[threadIdx.x] = wl[j0 + threadIdx.x];
-    __syncthreads();
-    if (col_ok) {
-      for (int jb = 0; jb < nw; jb += kBatch) {
-        // kBatch independent loads in flight before any is used: the
-        // gather of packed rows, not the popcounts, is what waits
-        uint32_t pw[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          pw[u] = jb + u < nw ? __ldg(packed + (long long)sidx[jb + u] * V + v) : 0u;
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const uint4 m = sm[jb + u];
-          acc[0] += __popc(m.x & pw[u]);
-          acc[1] += __popc(m.y & pw[u]);
-          acc[2] += __popc(m.z & pw[u]);
-          acc[3] += __popc(m.w & pw[u]);
-        }
-      }
-    }
-  }
-  if (col_ok) {
+  active_words::count(staged, words, n_active, packed, tile, W, V, v, sm, acc);
+  if (v < V) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       if (b0 + r < B) out[(long long)(b0 + r) * V + v] = acc[r];

@@ -22,11 +22,16 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0,
                              "cooccur_counts": 0, "dot_interaction": 0,
                              "flash_decode": 0}
+#: the co-occurrence launches by the path the kernel reports it took:
+#: ``"tma"`` (wgmma fed by TMA, the main path) or ``"bytes"`` (the
+#: mma.sync fallback for operands TMA cannot describe)
+COOCCUR_PATHS: Dict[str, int] = {"tma": 0, "bytes": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, COOCCUR_PATHS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -51,34 +56,29 @@ def postings_counts(masks: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     return ref.postings_counts_ref(masks, packed)
 
 
-def level_step(masks: torch.Tensor, packed_t_pad: torch.Tensor,
+def level_step(masks: torch.Tensor, packed: torch.Tensor,
                terms: torch.Tensor, valid: torch.Tensor,
                visited: torch.Tensor, *, v: int, k: int, dedup: bool = True):
     """One fused BFS level step: popcount counts + self/visited/valid
     masking + exact top-k.  Mirrors ``repro.kernels.ops.level_step``.
 
-    masks (R, W) int32 with W <= W_pad; packed_t_pad (V_pad, W_pad) int32,
-    the PRE-PADDED transposed postings (``QueryContext.packed_t_pad``: V to
-    a multiple of 8, W to a multiple of 128, padded once per epoch); terms
-    (R,) int32 (-1 = invalid); valid (R,) bool; visited (V,) bool for one
-    query, or (Q, V) bool for a batch-major frontier whose row r belongs to
-    query ``r // (R // Q)``.  Returns (weights, ids), both (R, k) int32, in
-    exact ``lax.top_k`` order; ``k > v`` clamps and pads the missing slots
-    with weight -1 / id 0.
-
-    Refuses to pad its big operand: an artifact that is not the pre-padded
-    one is an error, never a per-call pad.  The mask words past W read as
-    zero inside the kernel, so the frontier is not padded either.
+    masks (R, W) int32; packed (W, V) int32 with V >= v, the index's own
+    postings (``PackedIndex.packed``, the operand of
+    :func:`postings_counts`; the reference takes their padded transpose,
+    ``packed_t_pad``, and the results are identical: columns past ``v``
+    are padding either way); terms (R,) int32 (-1 = invalid); valid (R,)
+    bool; visited (V,) bool for one query, or (Q, V) bool for a
+    batch-major frontier whose row r belongs to query ``r // (R // Q)``.
+    Returns (weights, ids), both (R, k) int32, in exact ``lax.top_k``
+    order; ``k > v`` clamps and pads the missing slots with weight -1 /
+    id 0.  Nothing is padded or transposed per call.
     """
-    vp, wp = packed_t_pad.shape
-    if vp % 8 or wp % 128 or vp < v:
+    w, vp = packed.shape
+    if masks.shape[1] != w or vp < v:
         raise ValueError(
-            f"packed_t_pad {tuple(packed_t_pad.shape)} is not the pre-padded "
-            f"(V->8, W->128) artifact for v={v}; pass "
-            "QueryContext.packed_t_pad() — level_step never pads it")
-    if masks.shape[1] > wp:
-        raise ValueError(f"masks have {masks.shape[1]} words, more than the "
-                         f"artifact's {wp}")
+            f"packed {tuple(packed.shape)} is not the (W, V) postings of "
+            f"masks {tuple(masks.shape)} with V >= v={v}; pass the index's "
+            "packed (W, V) bitmap")
     vis = visited if visited.dim() == 2 else visited[None, :]
     if masks.shape[0] % vis.shape[0]:
         raise ValueError(f"{masks.shape[0]} frontier rows do not split into "
@@ -86,11 +86,11 @@ def level_step(masks: torch.Tensor, packed_t_pad: torch.Tensor,
     k_eff = min(k, v)
     if _on_cuda(masks):
         from repro_torch.kernels.level_step import level_step_cuda
-        w, i = level_step_cuda(masks, packed_t_pad, terms, valid, vis,
+        w, i = level_step_cuda(masks, packed, terms, valid, vis,
                                v=v, k=k_eff, dedup=dedup)
         LAUNCHES["level_step"] += 1
     else:
-        w, i = ref.level_step_ref(masks, packed_t_pad, terms, valid, vis,
+        w, i = ref.level_step_ref(masks, packed, terms, valid, vis,
                                   v=v, k=k_eff, dedup=dedup)
     if k_eff < k:
         pad = k - k_eff
@@ -126,8 +126,10 @@ def cooccur_counts(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x_l has {x_l.shape[0]} docs, x_r {x_r.shape[0]}")
     if _on_cuda(x_l):
         from repro_torch.kernels.cooccur import cooccur_counts_cuda
-        out = cooccur_counts_cuda(x_l.t(), x_r.t())
-        LAUNCHES["cooccur_counts"] += 1
+        out, path = cooccur_counts_cuda(x_l.t(), x_r.t())
+        if path is not None:
+            LAUNCHES["cooccur_counts"] += 1
+            COOCCUR_PATHS[path] += 1
         return out
     return ref.cooccur_counts_ref(x_l, x_r)
 

@@ -131,27 +131,21 @@ def masked_counts(counts: torch.Tensor, terms: torch.Tensor,
     return torch.where(cols[None, :] >= v, -2, counts).to(torch.int32)
 
 
-def level_step_ref(masks: torch.Tensor, packed_t_pad: torch.Tensor,
+def level_step_ref(masks: torch.Tensor, packed: torch.Tensor,
                    terms: torch.Tensor, valid: torch.Tensor,
                    visited: torch.Tensor, *, v: int, k: int, dedup: bool,
                    chunk_bytes: int = CHUNK_BYTES):
-    """One fused BFS level: AND + popcount counts over the padded
-    transposed postings, the masking rules, exact top-k.
+    """One fused BFS level: AND + popcount counts over the postings, the
+    masking rules, exact top-k.
 
-    masks (R, Wm) int32 with Wm <= W_pad; packed_t_pad (V_pad, W_pad)
-    int32; terms (R,) int32; valid (R,) bool; visited (Q, v) bool, where
-    row r belongs to query ``r // (R // Q)``.  ``k <= v``.  Returns
+    masks (R, W) int32; packed (W, V) int32 with V >= v, columns past v
+    being padding; terms (R,) int32; valid (R,) bool; visited (Q, v) bool,
+    where row r belongs to query ``r // (R // Q)``.  ``k <= v``.  Returns
     (weights, ids), both (R, k) int32."""
-    r, wm = masks.shape
-    vp = packed_t_pad.shape[0]
+    r = masks.shape[0]
+    vp = packed.shape[1]
     q = visited.shape[0]
-    counts = torch.empty((r, vp), dtype=torch.int32, device=masks.device)
-    step = _columns_per_chunk(r, wm, chunk_bytes)
-    for c0 in range(0, vp, step):
-        pt = packed_t_pad[c0:c0 + step, :wm]
-        anded = masks[:, None, :] & pt[None, :, :]
-        counts[:, c0:c0 + step] = popcount32(anded).sum(dim=2,
-                                                        dtype=torch.int32)
+    counts = postings_counts_ref(masks, packed, chunk_bytes=chunk_bytes)
     vis = None
     if dedup:
         vis = torch.zeros((q, vp), dtype=torch.bool, device=masks.device)

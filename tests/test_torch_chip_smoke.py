@@ -64,9 +64,16 @@ def smoke(monkeypatch):
                         lambda m: (*ref.active_words_ref(m, postings.ROWS),
                                    None))
     monkeypatch.setattr(level_step, "level_step_cuda", ref.level_step_ref)
-    # the launcher takes (M, K) and (N, K): the operands' .t() views
-    monkeypatch.setattr(cooccur, "cooccur_counts_cuda",
-                        lambda a, b: ref.cooccur_counts_ref(a.t(), b.t()))
+    # the launcher takes (M, K) and (N, K), the operands' .t() views, and
+    # reports the path the kernel's own test picks: TMA where both bases
+    # and row strides are multiples of 16 bytes
+    def cooccur_stub(a, b):
+        tma = all(x.data_ptr() % 16 == 0 and x.stride(0) % 16 == 0
+                  for x in (a, b))
+        return (ref.cooccur_counts_ref(a.t(), b.t()),
+                "tma" if tma else "bytes")
+
+    monkeypatch.setattr(cooccur, "cooccur_counts_cuda", cooccur_stub)
     monkeypatch.setattr(dot_interaction, "dot_interaction_cuda",
                         ref.dot_interaction_ref)
     monkeypatch.setattr(flash_decode, "flash_decode_cuda",
@@ -91,12 +98,14 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     ctx, hidx, seeds, launches = smoke.phase_csl(dev)
     assert launches == {"level_step": 6, "postings_counts": 6}
     smoke.phase_materialize(dev, ctx, hidx, launches)
-    assert launches["cooccur_counts"] == 2          # 256 terms / 128 a block
+    # 256 terms: one launch of GROUP = 4 row blocks of 128 (two of them
+    # past V), on the TMA path
+    assert launches["cooccur_counts"] == 1
     assert ctx.unpack_count == 1
     kernels = smoke.phase_kernels(dev, ctx, seeds, launches)
     assert [k["name"] for k in kernels] == ["postings_counts", "level_step",
                                             "cooccur_counts"]
-    assert [k["launches"] for k in kernels] == [6, 6, 2]
+    assert [k["launches"] for k in kernels] == [6, 6, 1]
     for k in kernels:
         assert set(k) == KEYS
         assert k["max_abs_err"] == 0
@@ -112,7 +121,13 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert "materialize_methods=4 identical=True" in out
     assert "kernel=postings_counts frontier=level-1 tile_rows=4 " in out
     assert "compaction_ms=" in out
-    assert "kernel=postings_counts frontier=level-0" in out
+    for level in (0, 2):
+        assert f"kernel=postings_counts frontier=level-{level}" in out
+    for level in (0, 1, 2):
+        assert f"kernel=level_step frontier=level-{level}" in out
+    for g in (1, 2, 4, 8):
+        assert f"kernel=cooccur_counts row_blocks={g} " in out
+    assert 'group=4 ' in out and '"tma": 1' in out
 
 
 def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,

@@ -14,10 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import query_masks  # noqa: E402
+from chip_smoke import query_masks, structured_operand  # noqa: E402
 from repro_torch.core import QueryContext, QuerySpec, construct  # noqa: E402
 from repro_torch.core.inverted_index import from_uint32  # noqa: E402
-from repro_torch.core.query_context import pad_transposed  # noqa: E402
 from repro_torch.data import synthetic_csl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -38,9 +37,12 @@ def _bits(rng, shape, device, density=0.5):
     return from_uint32(a, device)
 
 
-def _postings_masks(rng, kind, b, w, device):
+def _masks(rng, kind, b, w, device, per_query=32, density=0.7):
+    """(b, w) frontier masks: dense words, all zero, one nonzero word at
+    W - 1, or query-structured (``per_query`` rows a query, nonzero only
+    inside its seed support, 1% or 5% of the words)."""
     if kind == "dense":
-        return _bits(rng, (b, w), device, density=0.7)
+        return _bits(rng, (b, w), device, density=density)
     if kind == "zeros":
         return torch.zeros((b, w), dtype=torch.int32, device=device)
     if kind == "edge":                      # one nonzero word at W - 1
@@ -48,7 +50,8 @@ def _postings_masks(rng, kind, b, w, device):
         m[b - 1, w - 1] = -0x7FFF0000
         return m
     frac = {"query1": 0.01, "query5": 0.05}[kind]
-    return from_uint32(query_masks(rng, -(-b // 32), 32, w, frac)[:b], device)
+    return from_uint32(query_masks(rng, -(-b // per_query), per_query, w,
+                                   frac)[:b], device)
 
 
 @pytest.mark.gpu
@@ -59,7 +62,7 @@ def _postings_masks(rng, kind, b, w, device):
     (256, 3001, 700)])
 def test_postings_kernel_matches_plain(cuda, b, w, v, kind):
     rng = np.random.default_rng(b + w + v)
-    masks = _postings_masks(rng, kind, b, w, cuda)
+    masks = _masks(rng, kind, b, w, cuda)
     packed = _bits(rng, (w, v), cuda)
     before = ops.LAUNCHES["postings_counts"]
     got = ops.postings_counts(masks, packed)
@@ -77,7 +80,7 @@ def test_postings_compaction_matches_plain(cuda, b, kind):
     ``ref.active_words_ref`` does and stages the tile's mask words there."""
     from repro_torch.kernels import postings
     rows, w = postings.ROWS, 1000
-    masks = _postings_masks(np.random.default_rng(b), kind, b, w, cuda)
+    masks = _masks(np.random.default_rng(b), kind, b, w, cuda)
     words, n, staged = postings.active_words_cuda(masks)
     torch.cuda.synchronize()
     want_words, want_n = ref.active_words_ref(masks, rows)
@@ -91,32 +94,54 @@ def test_postings_compaction_matches_plain(cuda, b, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("q,b,v,w,k,dedup", [
-    (1, 5, 97, 7, 6, True),        # ragged, pad columns
-    (1, 3, 40, 3, 50, False),      # k > V, dedup off
-    (4, 16, 1000, 130, 16, True),  # batch-major, several V tiles
-    (2, 8, 300, 40, 200, True),    # k above the 128-column tile
+@pytest.mark.parametrize("q,b,v,w,k,dedup,kind", [
+    (1, 5, 97, 7, 6, True, "dense"),        # ragged, pad columns
+    (1, 3, 40, 3, 50, False, "dense"),      # k > V, dedup off
+    (4, 16, 1000, 130, 16, True, "dense"),  # batch-major, several V tiles
+    (2, 8, 300, 40, 200, True, "dense"),    # k near the 256-column tile
+    (8, 32, 2000, 3001, 16, True, "query1"),  # 1% of the words nonzero
+    (3, 32, 700, 1000, 16, True, "query5"),
+    (2, 8, 300, 40, 16, True, "zeros"),     # no active word at all
+    (5, 5, 600, 300, 16, True, "query5"),   # 4-row tiles straddle queries
+    (2, 5, 700, 200, 300, True, "query5"),  # k = 300, above the tile
 ])
-def test_level_step_kernel_matches_plain(cuda, q, b, v, w, k, dedup):
+def test_level_step_kernel_matches_plain(cuda, q, b, v, w, k, dedup, kind):
     rng = np.random.default_rng(q * b * v)
     r = q * b
     packed = _bits(rng, (w, v), cuda)
-    masks = _bits(rng, (r, w), cuda, density=0.8)
+    masks = _masks(rng, kind, r, w, cuda, per_query=b, density=0.8)
     terms = torch.from_numpy(rng.integers(-1, v, r)).to(cuda)
     valid = torch.from_numpy(rng.integers(0, 2, r).astype(bool)).to(cuda)
     visited = torch.from_numpy(rng.integers(0, 2, (q, v)).astype(bool)).to(cuda)
-    pt = pad_transposed(packed)
     before = ops.LAUNCHES["level_step"]
-    got_w, got_i = ops.level_step(masks, pt, terms, valid, visited, v=v, k=k,
-                                  dedup=dedup)
+    got_w, got_i = ops.level_step(masks, packed, terms, valid, visited, v=v,
+                                  k=k, dedup=dedup)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["level_step"] == before + 1
     k_eff = min(k, v)
-    want_w, want_i = ref.level_step_ref(masks, pt, terms, valid, visited,
+    want_w, want_i = ref.level_step_ref(masks, packed, terms, valid, visited,
                                         v=v, k=k_eff, dedup=dedup)
     assert torch.equal(got_w[:, :k_eff], want_w)
     assert torch.equal(got_i[:, :k_eff], want_i)
     assert (got_w[:, k_eff:] == -1).all() and (got_i[:, k_eff:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_level_step_kernel_reads_padded_packed_columns(cuda):
+    """packed wider than v (columns past v are padding): they rank below
+    every real column, as in the reference's padded artifact."""
+    rng = np.random.default_rng(6)
+    q, b, v, w = 2, 8, 300, 40
+    packed = _bits(rng, (w, 320), cuda)
+    masks = _bits(rng, (q * b, w), cuda)
+    terms = torch.from_numpy(rng.integers(-1, v, q * b)).to(cuda)
+    valid = torch.ones(q * b, dtype=torch.bool, device=cuda)
+    visited = torch.ones((q, v), dtype=torch.bool, device=cuda)
+    got = ops.level_step(masks, packed, terms, valid, visited, v=v, k=16)
+    want = ref.level_step_ref(masks, packed, terms, valid, visited, v=v,
+                              k=16, dedup=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0] == -1).all() and (got[1] < v).all()
 
 
 @pytest.mark.gpu
@@ -156,21 +181,49 @@ def _incidence(rng, v, d, device, density=0.2):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,vl,vr", [
-    (33, 17, 9),            # byte path: rows not 16-byte aligned
-    (300, 200, 100),        # byte path, ragged M and N tiles
-    (1024, 128, 256),       # 16-byte path, whole tiles
-    (4160, 130, 1000),      # 16-byte path, ragged M and N, long K
+@pytest.mark.parametrize("d,vl,vr,path", [
+    (33, 17, 9, "bytes"),          # rows not 16-byte aligned: the fallback
+    (300, 200, 100, "bytes"),      # the fallback, ragged M and N tiles
+    (1024, 128, 256, "tma"),       # whole tiles
+    (4160, 130, 1000, "tma"),      # ragged M and N, K not a stage multiple
+    (32, 600, 300, "tma"),         # K below one 128-byte stage
+    (416, 384, 700, "tma"),        # 3 row tiles: the cluster shrinks to 1
+    (4096, 512, 2048, "tma"),      # a 4-block group: clusters of 4
+    (2048, 1, 1, "tma"),           # one row, one column
 ])
-def test_cooccur_kernel_matches_plain(cuda, d, vl, vr):
+def test_cooccur_kernel_matches_plain(cuda, d, vl, vr, path):
     rng = np.random.default_rng(d + vl + vr)
     xl = _incidence(rng, vl, d, cuda).t()
     xr = _incidence(rng, vr, d, cuda).t()
     before = ops.LAUNCHES["cooccur_counts"]
+    paths = dict(ops.COOCCUR_PATHS)
     got = ops.cooccur_counts(xl, xr)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["cooccur_counts"] == before + 1
+    assert ops.COOCCUR_PATHS[path] == paths[path] + 1
     assert torch.equal(got, ref.cooccur_counts_ref(xl, xr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [128, 512])
+@pytest.mark.parametrize("kind", ["random", "identity", "ones"])
+def test_cooccur_tma_path_matches_int_mm(cuda, m, kind):
+    """The wgmma path at a row block (M = 128) and a group of four
+    (M = 512) == torch._int_mm on the same operands, on random and on
+    structured 0/1 operands."""
+    rng = np.random.default_rng(m)
+    d, n = 8192, 2304
+    if kind == "random":
+        a = _incidence(rng, m, d, cuda, 0.3)
+        b = _incidence(rng, n, d, cuda, 0.3)
+    else:
+        a = structured_operand(kind, m, d, cuda)
+        b = structured_operand(kind, n, d, cuda)
+    paths = dict(ops.COOCCUR_PATHS)
+    got = ops.cooccur_counts(a.t(), b.t())
+    torch.cuda.synchronize()
+    assert ops.COOCCUR_PATHS["tma"] == paths["tma"] + 1
+    assert torch.equal(got, torch._int_mm(a, b.t()))
 
 
 @pytest.mark.gpu
@@ -193,13 +246,15 @@ def test_materialize_methods_agree_on_the_card(cuda):
     """The whole-corpus network through the kernel equals the registry
     methods' on the card, scoped and unscoped."""
     from repro_torch.core import materialize
+    from repro_torch.core.materialize import GROUP
     docs = synthetic_csl(3000, 700, seed=4)
     ctx = QueryContext.from_docs(docs, 700, device=cuda)
     ctx.tag_scope("half", np.arange(0, 3000, 2))
     for scope in (None, "half"):
         before = ops.LAUNCHES["cooccur_counts"]
         want = materialize(ctx, k=8, method="pallas", scope=scope)
-        assert ops.LAUNCHES["cooccur_counts"] == before + 6   # 700 / 128
+        assert ops.LAUNCHES["cooccur_counts"] == before + -(-700 // (
+            GROUP * 128))
         for method in ("gemm", "popcount", "fused"):
             net = materialize(ctx, k=8, method=method, scope=scope)
             for a, b in zip(net, want):

@@ -189,7 +189,7 @@ def test_context_artifacts_match_reference():
                                   np.asarray(j_ctx.full_mask()))
     t_ctx.ingest_docs([[1, 2]])
     assert t_ctx.packed_t_pad() is not pt        # rebuilt after an ingest
-    assert set(t_ctx.operands("fused")) == {"packed_t_pad"}
+    assert t_ctx.operands("fused") == {}     # it reads the index's packed
 
 
 def test_context_scopes_and_artifact_cache():

@@ -8,6 +8,9 @@ values and tie order, on inputs drawn with numpy from a fixed seed.  The
 hand-written CUDA kernels are held against the plain versions in
 ``test_torch_gpu.py``, which needs a card and no jax.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -18,6 +21,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core.inverted_index import from_uint32  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import query_masks  # noqa: E402
 
 
 def _t(a):
@@ -111,7 +117,9 @@ def _jax_level(masks, packed, terms, valid, visited, *, v, k, dedup, backend):
 
 
 def _port_level(masks, packed, terms, valid, visited, *, v, k, dedup):
-    w, i = ops.level_step(_t(masks), _t(_pad_t(packed)),
+    """The port's level step takes the index's (W, V) postings where the
+    reference takes their padded transpose (``_pad_t``)."""
+    w, i = ops.level_step(_t(masks), _t(packed),
                           torch.from_numpy(terms), torch.from_numpy(valid),
                           torch.from_numpy(visited), v=v, k=k, dedup=dedup)
     assert w.dtype == torch.int32 and i.dtype == torch.int32
@@ -158,14 +166,17 @@ def test_level_step_forced_ties_take_lower_columns():
         np.testing.assert_array_equal(got[1], want[1])
 
 
-def test_level_step_refuses_unpadded_artifact():
-    """level_step never pads its big operand: a raw (V, W) transpose is an
-    error, not a silent per-call pad."""
+def test_level_step_refuses_packed_of_another_shape():
+    """level_step takes the index's (W, V) postings: a bitmap whose W is
+    not the masks' W (a transposed or padded artifact among them), or
+    whose V is below v, is an error."""
     packed, masks, terms, valid, visited = _level_inputs(4, 33, 3, 0)
-    with pytest.raises(ValueError, match="pre-padded"):
-        ops.level_step(_t(masks), _t(np.ascontiguousarray(packed.T)),
-                       torch.from_numpy(terms), torch.from_numpy(valid),
-                       torch.from_numpy(visited), v=33, k=4)
+    rest = (torch.from_numpy(terms), torch.from_numpy(valid),
+            torch.from_numpy(visited))
+    for bad in (np.ascontiguousarray(packed.T), _pad_t(packed), packed[:2],
+                np.ascontiguousarray(packed[:, :32])):
+        with pytest.raises(ValueError, match="postings"):
+            ops.level_step(_t(masks), _t(bad), *rest, v=33, k=4)
 
 
 def test_level_step_pad_columns_stay_below_real_candidates():
@@ -201,6 +212,33 @@ def test_level_step_batch_major_equals_separate_queries(dedup):
         rows = slice(j * b, (j + 1) * b)
         want = _jax_level(masks[rows], packed, terms[rows], valid[rows],
                           visited[j], v=v, k=k, dedup=dedup, backend="xla")
+        np.testing.assert_array_equal(got[0][rows], want[0])
+        np.testing.assert_array_equal(got[1][rows], want[1])
+
+
+@pytest.mark.parametrize("frac,q,v,w,k", [
+    (0.01, 3, 300, 500, 16),     # 1% of the words, the serving top-k
+    (0.05, 2, 130, 300, 16),
+    (0.05, 1, 600, 40, 300),     # k above the CUDA kernel's 256-column tile
+    (0.01, 2, 257, 200, 257),    # k == V, one column past the tile
+])
+def test_level_step_on_query_masks_matches_reference(frac, q, v, w, k):
+    """Frontier masks shaped like the BFS's (a query's rows nonzero only
+    inside its seed support, ``chip_smoke.query_masks``), 5 rows a query
+    so that 4-row tiles straddle queries: the port == the reference."""
+    rng = np.random.default_rng(int(frac * 100) + v)
+    b = 5
+    masks = query_masks(rng, q, b, w, frac)
+    packed = rng.integers(0, 1 << 32, (w, v), dtype=np.uint32)
+    terms = rng.integers(-1, v, (q * b,)).astype(np.int32)
+    valid = rng.random(q * b) < 0.8
+    visited = rng.random((q, v)) < 0.3
+    got = _port_level(masks, packed, terms, valid, visited, v=v, k=k,
+                      dedup=True)
+    for j in range(q):                  # the reference takes one query
+        rows = slice(j * b, (j + 1) * b)
+        want = _jax_level(masks[rows], packed, terms[rows], valid[rows],
+                          visited[j], v=v, k=k, dedup=True, backend="xla")
         np.testing.assert_array_equal(got[0][rows], want[0])
         np.testing.assert_array_equal(got[1][rows], want[1])
 

@@ -138,6 +138,53 @@ def test_row_tile_does_not_change_the_network():
                               row_tile=row_tile), want)
 
 
+def _count_launches(monkeypatch):
+    """Count the co-occurrence calls of method "pallas" (on the CPU the
+    wrapper runs the plain version, which LAUNCHES does not count)."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.cooccur_counts
+
+    def counted(x_l, x_r):
+        calls.append(x_l.shape[1])
+        return real(x_l, x_r)
+
+    monkeypatch.setattr(ops, "cooccur_counts", counted)
+    return calls
+
+
+@pytest.mark.parametrize("vocab,row_tile", [
+    (70, 8),      # 9 row blocks: groups of 4, 4 and a ragged 1
+    (300, 16),    # 19 blocks, the last one ragged (300 = 18 * 16 + 12)
+])
+def test_grouped_sweep_matches_reference(monkeypatch, vocab, row_tile):
+    """Method "pallas" hands the kernel GROUP row blocks a launch; a V that
+    is not a multiple of GROUP * row_tile gives the reference's network
+    exactly, in ceil(V / (GROUP * row_tile)) launches."""
+    from repro_torch.core.materialize import GROUP
+    assert vocab % (GROUP * row_tile)
+    docs = _corpus(250, vocab, seed=vocab, flavor="plain")
+    t_ctx, j_ctx = _contexts(docs, vocab)
+    calls = _count_launches(monkeypatch)
+    net = materialize(t_ctx, k=6, method="pallas", row_tile=row_tile)
+    assert len(calls) == -(-vocab // (GROUP * row_tile))
+    assert calls[0] == min(GROUP * row_tile, vocab + (-vocab) % row_tile)
+    _same_net(net, j_materialize(j_ctx, k=6, method="gemm"))
+
+
+def test_grouped_scoped_sweep_matches_reference(monkeypatch):
+    """The scope bitmap is ANDed into every row of a group."""
+    from repro_torch.core.materialize import GROUP
+    docs = _corpus(200, 90, seed=12, flavor="ties")
+    t_ctx, j_ctx = _contexts(docs, 90)
+    for ctx in (t_ctx, j_ctx):
+        ctx.tag_scope("odd", np.arange(1, 200, 2))
+    calls = _count_launches(monkeypatch)
+    net = materialize(t_ctx, k=5, method="pallas", scope="odd", row_tile=8)
+    assert len(calls) == -(-90 // (GROUP * 8))
+    _same_net(net, j_materialize(j_ctx, k=5, method="gemm", scope="odd"))
+
+
 def test_statistics_match_reference():
     from repro.core.network import (degree_histogram as j_hist,
                                     edge_jaccard as j_jaccard,
