@@ -40,7 +40,9 @@ llama3-8b's decode cells.  Phases:
   7. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
-                  against float64; kernel 4 timed at each cell
+                  against float64; kernel 4 and torch.bmm's full Gram
+                  timed at each cell's interaction input, the kernels' own
+                  device time (profiler) apart from the host time a call
   8. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
                   long_500k, ragged lengths (a 0 and a 1 among them) ==
                   the plain version; then timed at full lengths
@@ -49,6 +51,9 @@ Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
 imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
+
+``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 7 alone, to
+compare kernel 4 between two trees on one card, and prints no result line.
 """
 from __future__ import annotations
 
@@ -85,6 +90,10 @@ N_P99_BATCHES, N_BULK_BATCHES = 50, 3
 N_DLRM_CHECKED = 64            # rows of each output held against float64
 # fp32 through seven layers against a float64 recomputation of the rows
 DLRM_RTOL, DLRM_ATOL = 1e-4, 1e-5
+# kernel 4's device time: calls a profiled window, enough at serve_p99 that
+# the few-microsecond kernel is timed over many launches; host time: calls
+DOT_DEVICE_CALLS = {"serve_p99": 200, "serve_bulk": 20, "retrieval_cand": 10}
+DOT_HOST_CALLS = 1000
 
 # llama3-8b's attention widths at LM_SHAPES' decode cells: (B, S)
 DECODE_HEADS = (32, 8, 128)    # Hq, Hkv, d
@@ -301,26 +310,47 @@ DOT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def _parity_dot(dev):
-    """Kernel 4 == its plain version at odd shapes: B not a multiple of the
-    8 samples a CTA takes, F 8/27/40/64, E 10/16/63/64/256, both dtypes."""
+    """Kernel 4 == its plain version at odd shapes: B not a multiple of a
+    group, F 8/27/40/64, E 10/16/63/64/256, both dtypes; B 1; B 512 in
+    bf16; both sides of each B where the launch plan switches; and x one
+    element into a buffer, which the bulk copies cannot fetch.  Returns
+    the cases by load path."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import dot_interaction, ops, ref
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = 0
-    for b, f, e, dt in [(37, 27, 64, torch.float32), (1, 27, 64, torch.float32),
-                        (64, 8, 16, torch.float32), (256, 40, 10, torch.float32),
-                        (1001, 64, 256, torch.float32),
-                        (513, 27, 64, torch.bfloat16),
-                        (5, 27, 63, torch.bfloat16), (3, 2, 1, torch.float32)]:
-        x = torch.randn((b, f, e), generator=gen, device=dev).to(dt)
+    # where the plan switches at F = 27: past one wave of one CTA a SM, and
+    # past the CTAs that fit on the card at once to the persistent ring
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = dot_interaction.MAX_WARPS * sms
+    big = dot_interaction.launch_plan(1 << 20, 27, 64, 4, True, sms)
+    ring = big.grid * big.samples
+    paths = {"bulk": 0, "plain": 0}
+    for b, f, e, dt, offset in [
+            (37, 27, 64, torch.float32, 0), (1, 27, 64, torch.float32, 0),
+            (64, 8, 16, torch.float32, 0), (256, 40, 10, torch.float32, 0),
+            (1001, 64, 256, torch.float32, 0),
+            (513, 27, 64, torch.bfloat16, 0), (512, 27, 64, torch.bfloat16, 0),
+            (5, 27, 63, torch.bfloat16, 0), (3, 2, 1, torch.float32, 0),
+            (wave, 27, 64, torch.float32, 0),
+            (wave + 1, 27, 64, torch.float32, 0),
+            (ring, 27, 64, torch.float32, 0),
+            (ring + 1, 27, 64, torch.float32, 0),
+            (ring + 1, 27, 64, torch.bfloat16, 0),
+            (512, 27, 64, torch.float32, 1), (300, 27, 64, torch.bfloat16, 1)]:
+        buf = torch.randn(b * f * e + offset, generator=gen, device=dev)
+        x = buf.to(dt)[offset:].view(b, f, e)
+        bulk = dot_interaction.bulk_ok(x.data_ptr(), e, x.element_size())
+        if bulk and offset:
+            raise AssertionError(f"dot_interaction at {(b, f, e, dt, offset)} "
+                                 f"would take the bulk path")
         got, want = ops.dot_interaction(x), ref.dot_interaction_ref(x)
         tol = DOT_TOL[str(dt).split(".")[-1]]
         if got.shape != want.shape or not torch.allclose(
                 got.float(), want.float(), rtol=tol, atol=tol):
             raise AssertionError(f"dot_interaction kernel != plain at "
-                                 f"{(b, f, e, dt)}")
-        cases += 1
-    return cases
+                                 f"{(b, f, e, dt, offset)}")
+        paths["bulk" if bulk else "plain"] += 1
+    return json.dumps(paths)
 
 
 def _parity_decode(dev):
@@ -1182,9 +1212,46 @@ def _bound_ms(n_bytes, n_ops, ops_per_s):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def kernel_device_ms(fn, calls):
+    """Device time of one call of ``fn``: the kernels' own durations under
+    ``torch.profiler`` (:func:`device_profile`) over ``calls`` back-to-back
+    calls, summed and divided by ``calls``; the host's gaps between
+    launches are not counted.  None where there is no card (the CPU
+    rehearsal) or the profiler saw no kernel."""
+    def repeat():                      # keeps no output alive
+        for _ in range(calls):
+            fn()
+
+    fn()
+    prof = device_profile(repeat)
+    return prof[1] / calls if prof and prof[1] > 0 else None
+
+
+def host_us(fn, calls):
+    """Host time of one call of ``fn``: a host clock over ``calls``
+    back-to-back calls ending in one synchronize, divided by ``calls``.
+    Where the device takes longer than the host a call, this is the device
+    time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _fmt(ms):
+    return "not-measured" if ms is None else f"{ms:.4f}"
+
+
 def phase_kernel_dot(dev, cfg, model, batches, launches):
     """Kernel 4 at the interaction input of each DLRM cell, beside its
-    plain version, its bound and ``torch.bmm``'s full Gram; the JSON entry
+    plain version, its bound and ``torch.bmm``'s full Gram.  Each is timed
+    three ways: ``ms`` (CUDA events around 5 calls), ``device_ms`` (the
+    kernels' own time under the profiler, kernel and bmm in turns) and
+    ``host_us`` (a host clock over DOT_HOST_CALLS calls).  The JSON entry
     is serve_bulk's."""
     import torch
     from repro_torch.kernels import ops, ref
@@ -1204,12 +1271,29 @@ def phase_kernel_dot(dev, cfg, model, batches, launches):
         p = f * (f - 1) // 2
         n_bytes, n_ops = b * f * e * 4 + b * p * 4, 2 * b * p * e
         bound_ms, bound_by = _bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
+
         # yardstick (not used by the port): the full (B, F, F) Gram
-        lib_ms = cuda_ms(lambda: torch.bmm(x, x.mT), 5)
+        def kernel():
+            return ops.dot_interaction(x)
+
+        def bmm():
+            return torch.bmm(x, x.mT)
+
+        lib_ms = cuda_ms(bmm, 5)
+        calls = DOT_DEVICE_CALLS[name]
+        dev_ms = {kernel: [], bmm: []}
+        for fn in (kernel, bmm, bmm, kernel):
+            dev_ms[fn].append(kernel_device_ms(fn, calls))
+        k_dev, b_dev = (None if None in v else sum(v) / len(v)
+                        for v in dev_ms.values())
+        k_host, b_host = (host_us(fn, DOT_HOST_CALLS) for fn in (kernel, bmm))
         say("kernels", kernel="dot_interaction", shape=name, batch=b,
-            fields=f, embed=e, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            fields=f, embed=e, ms=f"{ms:.4f}", device_ms=_fmt(k_dev),
+            host_us=f"{k_host:.2f}", plain_ms=f"{plain_ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bytes=n_bytes,
             flops=n_ops, bmm_full_gram_ms=f"{lib_ms:.4f}",
+            bmm_device_ms=_fmt(b_dev), bmm_host_us=f"{b_host:.2f}",
+            device_calls=calls, host_calls=DOT_HOST_CALLS,
             max_abs_err=f"{err:.3g}", gb_per_s=f"{n_bytes / ms / 1e6:.1f}")
         if entry is None:
             entry = {"name": "dot_interaction", "route": "cuda",
@@ -1219,7 +1303,9 @@ def phase_kernel_dot(dev, cfg, model, batches, launches):
                      "launches": launches["dot_interaction"],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms}
+                     "library_ms": lib_ms, "device_ms": k_dev,
+                     "host_us": k_host, "bmm_device_ms": b_dev,
+                     "bmm_host_us": b_host}
         del x
     return entry
 
@@ -1288,8 +1374,14 @@ def phase_kernel_decode(dev, launches):
     return entry
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dlrm-only", action="store_true",
+                    help="build the kernels, serve dlrm-rm2 and time kernel "
+                         "4, nothing else; prints no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1301,6 +1393,14 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = phase_device()
+    if args.dlrm_only:
+        launches = {}
+        kernels = [phase_kernel_dot(dev, *phase_dlrm(dev, launches),
+                                    launches)]
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(card, flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
     phase_parity(dev)
     phase_strings(dev)
     ctx, hidx, seeds, launches = phase_csl(dev)
@@ -1324,4 +1424,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -54,12 +54,20 @@ class CoocRequest:
     error: Optional[Exception] = None
 
     @property
+    def seed_terms(self) -> List[int]:
+        return list(self.spec.seeds)
+
+    @property
     def edges(self) -> Optional[Dict[Tuple[int, int], int]]:
         return self.result.edges() if self.result is not None else None
 
     @property
     def latency_ms(self) -> float:
         return (self.t_done - self.t_submit) * 1e3
+
+    @property
+    def batch_occupancy(self) -> int:
+        return self.result.batch_occupancy if self.result is not None else 0
 
 
 class CoocFuture:

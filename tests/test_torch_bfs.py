@@ -267,3 +267,33 @@ def test_engine_fails_only_the_plan_of_a_dropped_scope():
     assert kept.result().edges() is not None
     with pytest.raises(KeyError, match="unknown scope"):
         eng.submit([3], scope="tmp")
+
+
+@pytest.mark.parametrize("q_batch,seed_lists,drain,occupancy", [
+    (2, [[3], [5], [7]], True, [2, 2, 1]),              # single seeds
+    (2, [[1, 4, 9], [6]], True, [2, 2]),                # a multi-seed query
+    (4, [[1], [2], [3], [4], [5]], True, [4] * 4 + [1]),  # 4, then 1
+    (2, [[3], [8, 2]], False, [0, 0]),                  # flushed unserved
+])
+def test_request_surface_matches_reference(q_batch, seed_lists, drain,
+                                           occupancy):
+    """``CoocRequest.seed_terms`` and ``.batch_occupancy`` of every request
+    in the finished log, in order, equal the reference engine's."""
+    docs = synthetic_csl(80, 16, seed=5)
+    engines = [cls(ctx, depth=2, topk=4, beam=8, q_batch=q_batch, **kw)
+               for cls, ctx, kw in (
+                   (CoocEngine, T.QueryContext.from_docs(docs, 16,
+                                                         device="cpu"),
+                    {"device": "cpu"}),
+                   (JEngine, J.QueryContext.from_docs(docs, 16), {}))]
+    logs = []
+    for eng in engines:
+        for seeds in seed_lists:
+            eng.submit(seeds)
+        logs.append(eng.run_until_drained() if drain
+                    else eng.shutdown(drain=False))
+    got, want = ([(r.rid, r.seed_terms, r.batch_occupancy) for r in log]
+                 for log in logs)
+    assert got == want
+    assert got == [(i, s, o) for i, (s, o) in
+                   enumerate(zip(seed_lists, occupancy))]

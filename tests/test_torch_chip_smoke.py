@@ -20,6 +20,9 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+# kernel 4's entry also separates device time from host time, its own and
+# torch.bmm's
+DOT_KEYS = KEYS | {"device_ms", "host_us", "bmm_device_ms", "bmm_host_us"}
 
 
 class _Event:
@@ -117,6 +120,9 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert "[csl] method=fused" in out and "[csl] method=pallas" in out
     assert "[materialize] method=pallas" in out
     assert "[materialize] method=gemm" in out
+    # kernel 4's parity: 16 cases; the plain path takes the two unaligned
+    # views and the three shapes whose rows are not whole 16-byte words
+    assert 'dot_interaction_cases={"bulk": 11, "plain": 5}' in out
     assert "[materialize] identical=True rows_checked=16" in out
     assert "materialize_methods=4 identical=True" in out
     assert "kernel=postings_counts frontier=level-1 tile_rows=4 " in out
@@ -143,8 +149,12 @@ def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,
     k5 = smoke.phase_kernel_decode(dev, launches)
     assert [k4["name"], k5["name"]] == ["dot_interaction", "flash_decode"]
     assert [k4["launches"], k5["launches"]] == [9, 3]
+    assert set(k4) == DOT_KEYS and set(k5) == KEYS
+    # no card: the profiler's device times are not measured, the host
+    # clock is
+    assert k4["device_ms"] is None and k4["bmm_device_ms"] is None
+    assert k4["host_us"] > 0 and k4["bmm_host_us"] > 0
     for k in (k4, k5):
-        assert set(k) == KEYS
         assert (ROOT / k["source"]).is_file()
         assert k["bound_ms"] > 0 and k["bound_by"] == "bytes"
         assert k["max_abs_err"] == 0            # plain against plain here
@@ -153,6 +163,8 @@ def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,
     for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
         assert f"[dlrm] shape={shape}" in out
         assert f"kernel=dot_interaction shape={shape}" in out
+    assert out.count("device_ms=not-measured host_us=") == 3
+    assert out.count("bmm_device_ms=not-measured bmm_host_us=") == 3
     assert "tf32=False matmul_precision=highest" in out
     for shape in ("decode_32k", "long_500k"):
         assert f"[decode] shape={shape}" in out

@@ -272,16 +272,27 @@ _DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,f,e,dtype", [
-    (128, 27, 64, torch.float32), (37, 27, 64, torch.float32),
-    (64, 8, 16, torch.float32), (256, 40, 10, torch.float32),
-    (1001, 64, 256, torch.float32),      # fewer samples a CTA
-    (37, 27, 64, torch.bfloat16), (5, 27, 63, torch.bfloat16),  # scalar path
-    (3, 2, 1, torch.float32),
+@pytest.mark.parametrize("b,f,e,dtype,offset", [
+    (128, 27, 64, torch.float32, 0), (37, 27, 64, torch.float32, 0),
+    (64, 8, 16, torch.float32, 0), (256, 40, 10, torch.float32, 0),
+    (1001, 64, 256, torch.float32, 0),   # fewer samples a CTA
+    (37, 27, 64, torch.bfloat16, 0), (5, 27, 63, torch.bfloat16, 0),
+    (3, 2, 1, torch.float32, 0),
+    # the DLRM cells' interaction input: serve_p99 and serve_bulk
+    (512, 27, 64, torch.float32, 0), (512, 27, 64, torch.bfloat16, 0),
+    (262_144, 27, 64, torch.float32, 0), (262_144, 27, 64, torch.bfloat16, 0),
+    # both sides of the plan's switches on 132 SMs: past one wave of one
+    # CTA a SM (528 samples), to the persistent ring past 3 CTAs a SM (1,584)
+    (528, 27, 64, torch.float32, 0), (529, 27, 64, torch.float32, 0),
+    (1584, 27, 64, torch.float32, 0), (1585, 27, 64, torch.float32, 0),
+    # x one element into its buffer: the plain load path
+    (512, 27, 64, torch.float32, 1), (1585, 27, 64, torch.bfloat16, 1),
 ])
-def test_dot_interaction_kernel_matches_plain(cuda, b, f, e, dtype):
+def test_dot_interaction_kernel_matches_plain(cuda, b, f, e, dtype, offset):
     rng = np.random.default_rng(b + f + e)
-    x = _normal(rng, (b, f, e), cuda, dtype)
+    buf = _normal(rng, (b * f * e + offset,), cuda, dtype)
+    x = buf[offset:].view(b, f, e)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
     before = ops.LAUNCHES["dot_interaction"]
     got = ops.dot_interaction(x)
     torch.cuda.synchronize()
