@@ -37,13 +37,22 @@ llama3-8b's decode cells.  Phases:
                   row tiles walk and its compaction launch's time; kernel
                   3 and ``torch._int_mm`` at 1, 2, 4 and 8 row blocks a
                   launch); then the CSL context is freed
-  7. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
+  7. stream       the streaming tier at the stream_ingest cell: a window of
+                  396,209 CSL docs (capacity pinned at 396,224 slots)
+                  filled in blocks of 4,096, then 8 rounds of 4,096 new
+                  docs, each evicting and spilling the oldest block to a
+                  cold store, each followed by a "fused" batch; the live
+                  docs' doc_freq and queries ("fused", "pallas") == the
+                  host oracle; the scope="all-time" network (kernel 3 over
+                  the live and cold tiers stacked) == that of a fresh
+                  context over all 428,977 docs; one "gemm" rebuild timed
+  8. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
                   against float64; kernel 4 and torch.bmm's full Gram
                   timed at each cell's interaction input, the kernels' own
                   device time (profiler) apart from the host time a call
-  8. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
+  9. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
                   long_500k, ragged lengths (a 0 and a 1 among them) ==
                   the plain version; then timed at full lengths
 
@@ -52,7 +61,7 @@ two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
 imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 
-``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 7 alone, to
+``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 8 alone, to
 compare kernel 4 between two trees on one card, and prints no result line.
 """
 from __future__ import annotations
@@ -61,6 +70,7 @@ import json
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +90,10 @@ N_ORACLE = 8                   # queries per method held against the oracle
 MID_DOCS, MID_TERMS = 1 << 15, 1 << 13
 MAT_K, ROW_TILE = 16, 128      # materialization: top-k per term, row block
 N_ROWS_CHECKED = 16            # materialized CSL rows held against the oracle
+# the streaming tier at the reference's stream_ingest cell
+# (src/repro/configs/base.py COOC_SHAPES): a window of the CSL corpus,
+# 4,096 new docs an ingest, then a depth-2 query batch
+STREAM_WINDOW, STREAM_BLOCK, STREAM_ROUNDS, STREAM_DEPTH = 396_209, 4_096, 8, 2
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 
@@ -747,6 +761,228 @@ def phase_materialize(dev, ctx, hidx, launches):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
 
+def _pad_block(docs, max_len=64):
+    """(N, max_len) int32 term ids, -1 padded, and an all-true valid row."""
+    import torch
+    ids = np.full((len(docs), max_len), -1, np.int32)
+    for i, d in enumerate(docs):
+        ids[i, :len(d)] = d
+    return torch.from_numpy(ids), torch.ones((len(docs),), dtype=torch.bool)
+
+
+def _live_host_index(hidx, lo):
+    """The host index of docs ``lo..`` of ``hidx``, renumbered from 0."""
+    from repro_torch.core import HostIndex
+    base = hidx.fwd_ptr[lo]
+    return HostIndex([p[p >= lo] - lo for p in hidx.postings],
+                     hidx.fwd_terms[base:], hidx.fwd_ptr[lo:] - base,
+                     hidx.vocab_size)
+
+
+def _oracle_batch(eng, want, v, what):
+    """Serve the seeds of ``want`` (seed -> oracle edges) through ``eng``
+    and hold each answer against its oracle."""
+    futs = {s: eng.submit([s]) for s in want}
+    eng.run_until_drained()
+    for s, f in futs.items():
+        res = f.result()
+        check_network(res, v)
+        if res.edges() != want[s]:
+            raise AssertionError(f"stream {what} != host oracle, seed {s}")
+
+
+def phase_stream(dev):
+    """The streaming tier at the stream_ingest cell, through kernels 1, 2
+    and 3: a window ring of CSL docs, evicting rounds that spill to a cold
+    store, and the all-time network over the live and cold tiers."""
+    import torch
+    from repro_torch.core import (QueryContext, build_host_index,
+                                  decode_block, encode_block, materialize)
+    from repro_torch.core.materialize import GROUP
+    from repro_torch.data import synthetic_csl
+    from repro_torch.kernels import ops
+    from repro_torch.serve import CoocEngine
+
+    t_phase = time.perf_counter()
+    v = CSL_TERMS
+    docs = synthetic_csl(STREAM_WINDOW, v, seed=0)
+    stream = synthetic_csl(STREAM_ROUNDS * STREAM_BLOCK, v, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = QueryContext.from_docs([], v, device=dev, window=STREAM_WINDOW,
+                                 cold_store={})
+    cap, shape = ctx.index.capacity, tuple(ctx.index.packed.shape)
+    for lo in range(0, STREAM_WINDOW, STREAM_BLOCK):
+        ctx.ingest(*_pad_block(docs[lo:lo + STREAM_BLOCK]))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    if (ctx.live_docs, ctx.evicted_docs_total) != (STREAM_WINDOW, 0):
+        raise AssertionError(f"fill gave {ctx.live_docs} live docs, "
+                             f"{ctx.evicted_docs_total} evicted")
+    clone_ms = cuda_ms(lambda: ctx.index.packed.clone(), 5)
+    say("stream", window=STREAM_WINDOW, capacity=cap, words=shape[0],
+        terms=v, fill_ingests=ctx.n_blocks, fill_s=f"{fill_s:.2f}",
+        packed_gb=f"{ctx.index.packed.numel() * 4 / 1e9:.3f}",
+        packed_clone_ms=f"{clone_ms:.4f}")
+
+    # four head and four tail seeds of the filled window
+    df = ctx.index.doc_freq.cpu().numpy()
+    rng = np.random.default_rng(2)
+    seeds = [int(x) for x in np.concatenate([
+        rng.choice(np.argsort(-df, kind="stable")[:256], N_ORACLE // 2,
+                   replace=False),
+        rng.choice(np.flatnonzero((df >= 8) & (df <= 64)), N_ORACLE // 2,
+                   replace=False)])]
+    eng = CoocEngine(ctx, device=dev, depth=STREAM_DEPTH, topk=TOPK,
+                     beam=BEAM, q_batch=Q_BATCH, method="fused")
+    eng.query([seeds[0]])                # first use: allocator, caches
+    spill_ms = []
+    spill = ctx._spill_block
+
+    def timed_spill(slots):
+        t = time.perf_counter()
+        spill(slots)                     # ends in the payload's copy out
+        spill_ms.append((time.perf_counter() - t) * 1e3)
+
+    ctx._spill_block = timed_spill
+    blocks = [_pad_block(stream[lo:lo + STREAM_BLOCK]) for lo in
+              range(0, len(stream), STREAM_BLOCK)]
+    ingest_ms, batch_ms, mem = [], [], []
+    ops.reset_launches()
+    for r, block in enumerate(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slots = ctx.ingest(*block)
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        futs = [eng.submit([s]) for s in seeds]
+        t0 = time.perf_counter()
+        eng.step()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(f.done() for f in futs):
+            raise AssertionError("the post-ingest batch left queries queued")
+        mem.append(torch.cuda.memory_allocated())
+        if (ctx.index.capacity, tuple(ctx.index.packed.shape)) != (cap,
+                                                                   shape):
+            raise AssertionError(f"round {r}: the ring grew to "
+                                 f"{tuple(ctx.index.packed.shape)}")
+        if r == 0 and not (slots[0] == STREAM_WINDOW and slots[-1] <
+                           slots[0]):
+            raise AssertionError(f"round 0 wrote slots {slots[0]}.."
+                                 f"{slots[-1]}, not a wrap from the top")
+        say("stream", round=r, slots=f"{slots[0]}..{slots[-1]}",
+            ingest_ms=f"{ingest_ms[-1]:.3f}", spill_ms=f"{spill_ms[-1]:.3f}",
+            fused_batch_ms=f"{batch_ms[-1]:.3f}",
+            memory_allocated_gb=f"{mem[-1] / 1e9:.3f}")
+    del ctx._spill_block, spill          # both refer to ctx
+    # the spill's host part: the npz encode of the last payload
+    payload = decode_block(ctx.cold_store[max(ctx.cold_store)])
+    t0 = time.perf_counter()
+    encode_block(payload)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    evicted = STREAM_ROUNDS * STREAM_BLOCK
+    if (ctx.live_docs, ctx.evicted_docs_total, ctx.cold_blocks()) != (
+            STREAM_WINDOW, evicted, STREAM_ROUNDS):
+        raise AssertionError(
+            f"after the rounds: {ctx.live_docs} live, "
+            f"{ctx.evicted_docs_total} evicted, {ctx.cold_blocks()} cold")
+    if mem[-1] > 1.01 * mem[0]:
+        raise AssertionError(f"memory grew from {mem[0]} to {mem[-1]} bytes "
+                             "over the rounds")
+    p = {q: np.percentile(x, [50, 99]) for q, x in
+         (("ingest", ingest_ms), ("spill", spill_ms), ("batch", batch_ms))}
+    say("stream", rounds=STREAM_ROUNDS, evicted=evicted,
+        cold_blocks=ctx.cold_blocks(),
+        ingest_p50_ms=f"{p['ingest'][0]:.3f}",
+        ingest_p99_ms=f"{p['ingest'][1]:.3f}",
+        spill_p50_ms=f"{p['spill'][0]:.3f}",
+        spill_p99_ms=f"{p['spill'][1]:.3f}",
+        payload_mb=f"{payload.packed.nbytes / 1e6:.3f}",
+        encode_ms=f"{encode_ms:.3f}",
+        fused_batch_p50_ms=f"{p['batch'][0]:.3f}",
+        fused_batch_p99_ms=f"{p['batch'][1]:.3f}",
+        memory_growth_bytes=mem[-1] - mem[0])
+
+    # the live docs are the fill's docs from `evicted` on, then the stream
+    t0 = time.perf_counter()
+    every = docs + stream
+    hidx = build_host_index(every, v)
+    live = _live_host_index(hidx, evicted)
+    want_df = np.array([len(x) for x in live.postings], np.int32)
+    if not np.array_equal(ctx.index.doc_freq.cpu().numpy(), want_df):
+        raise AssertionError("windowed doc_freq != the live docs' df")
+    want = {s: oracle_edges(live, [s], STREAM_DEPTH, TOPK, BEAM)
+            for s in seeds}
+    _oracle_batch(eng, want, v, "fused")
+    _oracle_batch(CoocEngine(ctx, device=dev, depth=STREAM_DEPTH, topk=TOPK,
+                             beam=BEAM, q_batch=Q_BATCH, method="pallas"),
+                  want, v, "pallas")
+    say("stream", doc_freq_exact=True, oracle_queries=len(seeds),
+        methods="fused,pallas", oracle_s=f"{time.perf_counter() - t0:.2f}")
+
+    combined = ctx.all_time_index()
+    stacked = (combined.n_words, combined.n_docs)
+    del combined
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net_all = materialize(ctx, k=MAT_K, scope="all-time", method="pallas",
+                          row_tile=ROW_TILE)
+    torch.cuda.synchronize()
+    all_time_s = time.perf_counter() - t0
+    launches = {name: ops.LAUNCHES[name] for name in
+                ("postings_counts", "level_step", "cooccur_counts")}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if launches["cooccur_counts"] != -(-v // (GROUP * ROW_TILE)):
+        raise AssertionError(f"{launches['cooccur_counts']} cooccur launches "
+                             "for the all-time sweep")
+    say("stream", all_time_words=stacked[0], all_time_slots=stacked[1],
+        all_time_s=f"{all_time_s:.3f}",
+        all_time_transient_gb=
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}",
+        launches=json.dumps(launches))
+
+    # a "gemm" batch after an ingest rebuilds the whole dense incidence
+    t0 = time.perf_counter()
+    xd = ctx.x_dense()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    gemm = CoocEngine(ctx, device=dev, depth=STREAM_DEPTH, topk=TOPK,
+                      beam=BEAM, q_batch=Q_BATCH, method="gemm")
+    t0 = time.perf_counter()
+    _oracle_batch(gemm, want, v, "gemm")
+    say("stream", gemm_x_dense_rebuild_s=f"{rebuild_s:.3f}",
+        x_dense_gb=f"{xd.numel() / 1e9:.3f}",
+        gemm_batch_ms=f"{(time.perf_counter() - t0) * 1e3:.3f}",
+        gemm_oracle=True)
+    alive = weakref.ref(ctx)
+    del xd, gemm, eng, futs, ctx         # a future refers to its engine
+    if alive() is not None:
+        raise AssertionError("the windowed context (ring and x_dense) "
+                             "outlived its last use")
+    torch.cuda.empty_cache()
+
+    # every doc ever ingested, in one append-mode context
+    fresh = QueryContext.from_docs([], v, capacity=len(every), device=dev)
+    fresh.ingest(*_pad_block(every))
+    net_fresh = materialize(fresh, k=MAT_K, method="pallas",
+                            row_tile=ROW_TILE, use_cache=False)
+    if not same_network(net_all, net_fresh):
+        raise AssertionError("all-time network != a fresh context's")
+    rows = np.concatenate([seeds, rng.choice(v, N_ROWS_CHECKED - len(seeds),
+                                             replace=False)])
+    for t in [int(x) for x in rows]:
+        if network_row(net_all, t, MAT_K) != oracle_row(hidx, t, MAT_K):
+            raise AssertionError(f"all-time row {t} != host oracle")
+    say("stream", fresh_docs=len(every), identical=True,
+        rows_checked=len(rows),
+        max_memory_allocated_gb=
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def _bound(nonzero_words, active_words, out_bytes, mask_bytes, v, sms, hz):
     """The least time for the work these inputs need: each nonzero mask
     word against every column (popcounts) and each packed word row that
@@ -1407,6 +1643,8 @@ def main(argv=()) -> int:
     phase_materialize(dev, ctx, hidx, launches)
     kernels = phase_kernels(dev, ctx, seeds, launches)
     del ctx, hidx                      # the CSL artifacts, about 33 GB
+    torch.cuda.empty_cache()
+    phase_stream(dev)
     torch.cuda.empty_cache()
     dlrm = phase_dlrm(dev, launches)
     kernels.append(phase_kernel_dot(dev, *dlrm, launches))

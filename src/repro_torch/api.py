@@ -15,16 +15,18 @@ It runs on ``cuda`` unless constructed with ``device="cpu"``.  Both
 capacities grow on demand: the doc axis by repack on overflow
 (``on_overflow="grow"``), the term axis as the lexicon mints ids.
 Queries can be scoped to a source tag (``add_documents(source=...)``) or
-a trailing time bucket (``scope="7d"``).
+a trailing time bucket (``scope="7d"``).  ``window=`` enters sliding-window
+mode (at most ``window`` live docs, oldest batch evicted first, memory
+pinned), and ``cold_store=`` keeps every evicted batch in a cold tier that
+``scope="all-time"`` answers over together with the live docs.
 
 :meth:`CoocIndex.full_network` and :meth:`CoocIndex.network_stats` give the
 whole-corpus network (every term's top-``k`` neighbors) and its global
 statistics, exactly, through :func:`repro_torch.core.materialize`.
 
-Not ported yet (``ROADMAP.md``): the sliding window, the cold tier
-(``scope="all-time"``), device meshes, approximate materialization
-(``mode="approx"``) and snapshots; those arguments and methods raise
-``NotImplementedError``.
+Not ported yet (``ROADMAP.md``): device meshes, approximate
+materialization (``mode="approx"``) and snapshots; those arguments and
+methods raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from repro_torch.core.query_context import (
     QueryContext,
     not_ported,
 )
+from repro_torch.core.storage import make_storage
 from repro_torch.data.tokenizer import DEFAULT_STOPWORDS, tokenize
 from repro_torch.device import resolve_device
 from repro_torch.serve.cooc_engine import CoocEngine, CoocFuture
@@ -71,7 +74,11 @@ class CoocIndex:
     """Text-level co-occurrence index: tokenizer + lexicon + live packed
     index + plan-aware query engine, on one device.  The
     depth/topk/beam/dedup/method arguments are the default query plan;
-    every query method takes per-call overrides."""
+    every query method takes per-call overrides.  ``window`` enters
+    sliding-window (streaming) mode: at most ``window`` live docs,
+    oldest-ingest-first eviction, fixed memory; ``cold_store`` (a mapping
+    or a :func:`~repro_torch.core.storage.make_storage` config) keeps the
+    evicted batches for ``scope="all-time"``."""
 
     def __init__(self, *, device="cuda", capacity: Optional[int] = None,
                  vocab_capacity: int = 256,
@@ -80,18 +87,24 @@ class CoocIndex:
                  stopwords: Set[str] = DEFAULT_STOPWORDS,
                  on_overflow: str = "grow", window: Optional[int] = None,
                  mesh=None, devices=None, cold_store=None):
-        if window is not None:
-            raise not_ported("the sliding window (window=)")
+        if capacity is not None and window is not None:
+            raise ValueError(
+                f"capacity={capacity} and window={window} are contradictory:"
+                " window mode pins the doc buffer at ceil(window/32)*32"
+                " slots and reuses them forever — pass only one")
         if mesh is not None or devices is not None:
             raise not_ported("sharded serving (mesh=/devices=)")
-        if cold_store is not None:
-            raise not_ported("the cold tier (cold_store=)")
         dev = resolve_device(device)
         self.lexicon = Lexicon()
         self.stopwords = stopwords
-        cap = max(int(capacity or 1024), 32)
+        # window mode: set_window sizes the ring
+        cap = max(int(capacity or 1024), 32) if window is None else 32
+        if cold_store is not None:
+            cold_store = make_storage(cold_store)
         self.ctx = QueryContext.from_docs([], max(int(vocab_capacity), 1),
-                                          capacity=cap, device=dev)
+                                          capacity=cap, device=dev,
+                                          window=window,
+                                          cold_store=cold_store)
         self.engine = CoocEngine(self.ctx, device=dev, depth=depth,
                                  topk=topk, beam=beam, dedup=dedup,
                                  method=method, q_batch=q_batch,
@@ -117,8 +130,10 @@ class CoocIndex:
         """Tokenise + ingest; new terms extend the lexicon (growing the
         term axis when needed).  The docs are visible to the very next
         query.  ``timestamp`` (default now) drives the time-bucket scopes;
-        ``source`` tags the batch as a named scope.  A rejected batch
-        leaves no trace in the lexicon or the index.  Returns #docs."""
+        ``source`` tags the batch as a named scope.  In window mode the
+        oldest batches are evicted first when the window fills.  A
+        rejected batch leaves no trace in the lexicon or the index.
+        Returns #docs."""
         if source is not None and parse_duration(source) is not None:
             raise ValueError(
                 f"source tag {source!r} collides with the duration-scope "
@@ -127,8 +142,14 @@ class CoocIndex:
             raise ValueError(
                 "source tag 'all-time' is reserved for the cold-tier scope "
                 "(live + evicted docs); pick another name")
+        if self.ctx.window is not None and len(texts) > self.ctx.window:
+            # refused before interning: no phantom lexicon terms
+            raise ValueError(
+                f"batch of {len(texts)} docs exceeds window="
+                f"{self.ctx.window}; it could never be live in full — "
+                "split the batch or raise the window")
         token_docs = [tokenize(t, self.stopwords) for t in texts]
-        if (self.engine.on_overflow != "grow"
+        if (self.ctx.window is None and self.engine.on_overflow != "grow"
                 and self.ctx.n_docs + len(token_docs)
                 > self.ctx.index.capacity):
             raise CapacityError(
@@ -161,6 +182,7 @@ class CoocIndex:
         if cap > len(self._doc_time):
             self._doc_time = np.pad(self._doc_time,
                                     (0, cap - len(self._doc_time)))
+        # a reused ring slot takes its new doc's time
         self._doc_time[slots] = time.time() if timestamp is None \
             else float(timestamp)
         return len(docs)
@@ -265,8 +287,8 @@ class CoocIndex:
     def _materialize(self, k: int, scope: Optional[str],
                      now: Optional[float], method: Optional[str],
                      mode: str, **kwargs) -> CoocNetwork:
-        # "all-time" is the cold-tier scope, not a tag: core.materialize
-        # refuses it (and mode="approx") until those are ported
+        # "all-time" is the cold-tier scope, not a tag or a time bucket:
+        # core.materialize stacks the live and cold tiers
         name = scope if scope == "all-time" else self._resolve_scope(scope,
                                                                       now)
         return materialize(self.ctx, k=int(k),
@@ -282,8 +304,10 @@ class CoocIndex:
         ``{(term_a, term_b): count}`` — the paper's whole-corpus artifact,
         versus :meth:`network`'s seed-rooted neighborhood.  ``scope``
         restricts it to a time bucket ("7d") or source tag exactly as in
-        :meth:`query`; ``method`` defaults to the engine's.  A warm context
-        (no ingest since the last call) serves the cached result."""
+        :meth:`query`, and ``scope="all-time"`` answers over the live docs
+        and every batch the window evicted to the cold store; ``method``
+        defaults to the engine's.  A warm context (no ingest since the last
+        call) serves the cached result."""
         net = self._materialize(k, scope, now, method, mode, **kwargs)
         id2t = self.lexicon.id_to_term
         return {(id2t[a], id2t[b]): w
@@ -320,7 +344,7 @@ class CoocIndex:
 
     @property
     def window(self) -> Optional[int]:
-        return None
+        return self.ctx.window
 
     @property
     def n_terms(self) -> int:

@@ -1,6 +1,7 @@
 """The paper's core in PyTorch: the bit-packed inverted index, the BFS
 construction (Algorithm 3), the typed query surface, the query context
-and exact whole-corpus materialization.  Mirrors ``repro.core`` for the parts ported so far."""
+with its sliding window and cold tier, and exact whole-corpus
+materialization.  Mirrors ``repro.core`` for the parts ported so far."""
 from repro_torch.core.inverted_index import (  # noqa: F401
     Lexicon,
     PackedIndex,
@@ -15,6 +16,7 @@ from repro_torch.core.inverted_index import (  # noqa: F401
     ingest,
     ingest_at,
     pack_docs,
+    retire_docs,
     slots_bitmap,
     to_uint32,
     unpack_bitmap,
@@ -60,3 +62,16 @@ from repro_torch.core.cooccurrence import (  # noqa: F401
     traversal_construct_host,
 )
 from repro_torch.core.materialize import materialize  # noqa: F401,E402
+from repro_torch.core.atomic_io import (  # noqa: F401
+    atomic_write_bytes,
+    atomic_write_text,
+    commit_dir,
+    staged_dir,
+)
+from repro_torch.core.storage import (  # noqa: F401
+    ColdBlock,
+    FileStorage,
+    decode_block,
+    encode_block,
+    make_storage,
+)

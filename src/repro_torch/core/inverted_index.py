@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ref import postings_counts_ref
+from repro_torch.kernels.ref import popcount32, postings_counts_ref
 
 
 class PackedIndex(NamedTuple):
@@ -251,6 +251,30 @@ def slots_bitmap(doc_slots, n_words: int) -> np.ndarray:
             raise ValueError(f"doc slot out of range [0, {n_words * 32})")
         np.bitwise_or.at(m, s // 32, np.uint32(1) << (s % 32).astype(np.uint32))
     return m
+
+
+def retire_docs(index: PackedIndex, doc_mask) -> PackedIndex:
+    """Evict a document set: clear its postings bits, decrement doc_freq.
+
+    ``doc_mask`` is the (W,) bitmap of the doc slots to retire
+    (:func:`slots_bitmap`), uint32 numpy or an int32 bit-pattern tensor.
+    Only the word rows where the mask is nonzero are read and rewritten
+    (a block of docs covers a few rows of the bitmap); the result equals
+    the reference's full AND pass bit for bit.  ``doc_freq`` drops by the
+    popcount of the cleared bits.  ``n_docs`` stays the valid-slot
+    high-water mark.  Returns a new index (the input's tensors are not
+    modified)."""
+    dev = index.device
+    if not isinstance(doc_mask, torch.Tensor):
+        doc_mask = from_uint32(doc_mask, dev)
+    mask = doc_mask.to(device=dev, dtype=torch.int32)
+    rows = torch.nonzero(mask).squeeze(1)
+    sub = index.packed[rows]
+    m = mask[rows, None]
+    packed = index.packed.clone()
+    packed[rows] = sub & ~m
+    df = index.doc_freq - popcount32(sub & m).sum(dim=0, dtype=torch.int32)
+    return PackedIndex(packed, df, index.n_docs)
 
 
 def ingest(index: PackedIndex, new_doc_terms, new_doc_valid) -> PackedIndex:

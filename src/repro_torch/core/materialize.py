@@ -29,9 +29,13 @@ the context's epoch artifacts, and the finished network is cached per
 (k, method, scope, row tile), invalidated by an ingest or a scope
 redefinition.
 
-Not ported yet (``ROADMAP.md``): ``mode="approx"`` (sketches),
-``scope="all-time"`` (the cold tier), ``mesh=`` and the sharded
-strategies; each raises ``NotImplementedError``.
+``scope="all-time"`` answers over the live and the cold tier together:
+the same sweep over :meth:`QueryContext.all_time_index`, the cold blocks'
+word rows stacked under the live bitmap, cached per (epoch,
+``cold_version()``).  With nothing spilled it is the live network.
+
+Not ported yet (``ROADMAP.md``): ``mode="approx"`` (sketches), ``mesh=``
+and the sharded strategies; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -99,7 +103,8 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     index: a PackedIndex, or a QueryContext (cached artifacts + result
     caching).  method: ``"pallas"`` runs the co-occurrence kernel; any
     registered count method runs through the registry.  scope: a context
-    scope NAME (time bucket, source tag); scope_mask: an explicit (W,) doc
+    scope NAME (time bucket, source tag), or ``"all-time"`` for the live
+    and cold tiers together; scope_mask: an explicit (W,) doc
     bitmap, uint32 numpy or an int32 bit-pattern tensor (mutually
     exclusive with ``scope``).  Either way the result is exactly the
     network of an index holding only the scoped documents.
@@ -136,7 +141,22 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     if mesh is not None or shard_strategy != "auto":
         raise not_ported("sharded materialization (mesh=, shard_strategy=)")
     if scope == "all-time":
-        raise not_ported("the cold tier (scope='all-time')")
+        if ctx.cold_blocks() == 0:
+            scope = None                 # nothing spilled: the live network
+        else:
+            # a live ingest moves the epoch, a new spill the version; a
+            # hit builds no stacked index
+            key = ("materialize", "all-time", k, method, row_tile)
+            ver = ctx.cold_version()
+            if use_cache:
+                hit = ctx.cached_artifact(key, ver)
+                if hit is not None:
+                    return hit
+            net = materialize(ctx.all_time_index(), k=k, method=method,
+                              row_tile=row_tile)
+            if use_cache:
+                ctx.store_artifact(key, net, ver)
+            return net
 
     pidx = ctx.index if ctx is not None else index
     v, w = pidx.vocab_size, pidx.n_words

@@ -1,8 +1,8 @@
 """QueryContext — the packed index plus its epoch-versioned artifacts.
 
-Mirrors ``repro.core.query_context`` in append mode: the context owns the
-packed index on one device and builds its derived artifacts lazily, once
-per ingest epoch —
+Mirrors ``repro.core.query_context`` on one device: the context owns the
+packed index and builds its derived artifacts lazily, once per ingest
+epoch —
 
 * ``x_dense()``      the dense int8 incidence (the gemm method's and the
   co-occurrence kernel's operand), stored term-major and built in term
@@ -16,12 +16,28 @@ plus named document scopes (``(W,)`` bitmaps ANDed into the seed filters),
 the all-ones ``full_mask`` (the unscoped scope operand), a generic
 epoch-checked artifact cache, and ingest with a host-side capacity check.
 
-The sliding window, the cold tier and the device mesh are not ported yet
-(``ROADMAP.md``); asking for them raises ``NotImplementedError``.
+**Sliding window.**  With ``window=N`` the context stops growing and
+manages doc slots as a ring: each ingest batch is a block of consecutive
+ring slots, and when live docs would exceed the window the oldest blocks
+are evicted (their postings bits cleared and their ``doc_freq``
+contributions decremented by :func:`~repro_torch.core.inverted_index.
+retire_docs`) before the new block is scattered into the freed slots.
+Capacity is pinned at ``ceil(window / 32) * 32`` slots.  Liveness is host
+bookkeeping (the block deque), never a device search.
+
+**Cold tier.**  With ``cold_store=`` (a ``MutableMapping[str, bytes]``,
+:mod:`repro_torch.core.storage`) every evicted block is first re-packed on
+the device from the word rows it touches and spilled as a self-contained
+payload, the reference's format; :meth:`QueryContext.all_time_index`
+stacks the cold blocks under the live bitmap.
+
+The device mesh is not ported yet (``ROADMAP.md``); asking for it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from collections import deque
+from typing import Deque, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,9 +50,13 @@ from repro_torch.core.inverted_index import (
     grow_vocab,
     ingest_at,
     pack_docs,
+    retire_docs,
     slots_bitmap,
+    to_uint32,
 )
 from repro_torch.core.query import get_count_method
+from repro_torch.core.storage import ColdBlock, decode_block, encode_block
+from repro_torch.kernels.ref import popcount32
 from repro_torch.device import resolve_device
 
 
@@ -65,27 +85,45 @@ class QueryContext:
 
     def __init__(self, index: PackedIndex, *, device="cuda",
                  window: Optional[int] = None, mesh=None, cold_store=None):
-        if window is not None:
-            raise not_ported("the sliding window (window=)")
-        if cold_store is not None:
-            raise not_ported("the cold tier (cold_store=)")
         if mesh is not None:
             raise not_ported("sharded execution (mesh=)")
         self.device = resolve_device(device)
         self._index = PackedIndex(index.packed.to(self.device),
                                   index.doc_freq.to(self.device),
                                   int(index.n_docs))
+        # cold tier: every evicted block is spilled to this store before
+        # its postings bits are cleared
+        self._cold = cold_store
+        self._cold_seq = 0        # next spill key / cold-tier version
         self.epoch = 0
         self.unpack_count = 0   # monitoring: dense rebuilds == ingest epochs
         self._cache: Dict[str, Tuple[int, torch.Tensor]] = {}
         # generic epoch-versioned artifact cache: key -> (epoch, version, value)
         self._artifact_cache: Dict[Tuple, Tuple[int, int, object]] = {}
         self._scope_ver: Dict[str, int] = {}
+        # streaming state: live ingest blocks (slot arrays, oldest first)
+        # and the ring write head
         n0 = self._index.n_docs
-        self._blocks = [np.arange(n0, dtype=np.int64)] if n0 > 0 else []
+        self._blocks: Deque[np.ndarray] = deque()
+        if n0 > 0:
+            self._blocks.append(np.arange(n0, dtype=np.int64))
+        self._ring_tail = n0
+        self._window: Optional[int] = None
+        # blocks live before a set_window capacity growth may sit anywhere
+        # in the padded ring; only the oldest _stranded blocks can overlap
+        # a fresh target range, so steady-state ingest skips the sweep
+        self._stranded = 0
         self._scopes: Dict[str, np.ndarray] = {}
         self._scope_dev: Dict[str, Tuple[int, torch.Tensor]] = {}
         self._full_mask: Optional[torch.Tensor] = None
+        self.evicted_docs_total = 0    # monitoring: docs retired by the ring
+        if window is not None:
+            if n0 > int(window):
+                raise ValueError(
+                    f"initial corpus of {n0} docs exceeds window={window}; "
+                    "it could never be live in full — raise the window or "
+                    "pre-trim the corpus")
+            self.set_window(window)
 
     @classmethod
     def from_docs(cls, doc_terms: Sequence[Sequence[int]], vocab_size: int, *,
@@ -122,7 +160,142 @@ class QueryContext:
         """Slot ids of all live documents, oldest block first."""
         if not self._blocks:
             return np.zeros((0,), np.int64)
-        return np.concatenate(self._blocks)
+        return np.concatenate(list(self._blocks))
+
+    # -- streaming window ---------------------------------------------------
+
+    @property
+    def window(self) -> Optional[int]:
+        return self._window
+
+    def set_window(self, window: int) -> None:
+        """Enter (or resize) sliding-window mode: at most ``window`` live
+        docs, capacity pinned at ``ceil(window/32)*32`` slots.  Shrinking
+        below the current live count evicts oldest blocks to fit."""
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        need_words = (window + 31) // 32
+        if need_words > self._index.n_words:
+            packed = self._index.packed.new_zeros(
+                (need_words, self._index.vocab_size))
+            packed[:self._index.n_words] = self._index.packed
+            self._index = PackedIndex(packed, self._index.doc_freq,
+                                      self._index.n_docs)
+            self.epoch += 1          # X's doc axis grew: rebuild once
+            if self._blocks:
+                self._stranded = len(self._blocks)
+        self._window = window
+        if self._evict_for(0):
+            self.epoch += 1          # retired docs: caches must rebuild
+
+    def _evict_for(self, n_new: int) -> int:
+        """Evict oldest blocks until ``live + n_new <= window``; one retire
+        pass for all of them.  Returns #docs evicted."""
+        evicted: list = []
+        while self._blocks and self.live_docs + n_new > self._window:
+            evicted.append(self._blocks.popleft())
+            self._stranded = max(0, self._stranded - 1)
+        if not evicted:
+            return 0
+        slots = np.concatenate(evicted)
+        self._retire_slots(slots)
+        return len(slots)
+
+    def _retire_slots(self, slots: np.ndarray) -> None:
+        """Spill ``slots`` to the cold store (if any) while their bits are
+        still set, then clear them from the index and from every scope."""
+        if self._cold is not None and len(slots):
+            self._spill_block(np.asarray(slots, np.int64))
+        mask = slots_bitmap(slots, self._index.n_words)
+        self._index = retire_docs(self._index, mask)
+        for name in self._scopes:
+            self._scopes[name] = self._scope_host(name) & ~mask
+            self._scope_dev.pop(name, None)
+        self.evicted_docs_total += len(slots)
+
+    def retire_oldest_block(self) -> int:
+        """Evict the oldest ingest block by hand.  Returns #docs retired;
+        bumps the epoch iff anything was retired."""
+        if not self._blocks:
+            return 0
+        slots = self._blocks.popleft()
+        self._stranded = max(0, self._stranded - 1)
+        self._retire_slots(slots)
+        self.epoch += 1
+        return len(slots)
+
+    # -- cold tier ----------------------------------------------------------
+
+    @property
+    def cold_store(self):
+        """The attached cold-tier store (a MutableMapping[str, bytes]), or
+        None: then evicted blocks are destroyed."""
+        return self._cold
+
+    def cold_version(self) -> int:
+        """Spill counter: bumps once per spilled block, so artifacts
+        derived from the cold tier version on it."""
+        return self._cold_seq
+
+    def cold_blocks(self) -> int:
+        return len(self._cold) if self._cold is not None else 0
+
+    def _spill_block(self, slots: np.ndarray) -> None:
+        """Write ``slots``' postings to the cold store as a self-contained
+        :class:`~repro_torch.core.storage.ColdBlock`: doc ``i`` of the
+        block is bit ``i % 32`` of word row ``i // 32``.  The block is
+        re-packed on the device from the word rows it touches, one output
+        bit position at a time, so no (n, V) intermediate is built; only
+        the (ceil(n/32), V) payload crosses to the host."""
+        dev = self.device
+        n, v = len(slots), self._index.vocab_size
+        word = slots // 32
+        uw = np.unique(word)
+        rows = self._index.packed[torch.from_numpy(uw).to(dev)]
+        pos = torch.from_numpy(np.searchsorted(uw, word)).to(dev)
+        shift = torch.from_numpy((slots % 32).astype(np.int32)).to(dev)
+        packed = rows.new_zeros(((n + 31) // 32, v))
+        for b in range(min(32, n)):
+            src, sh = pos[b::32], shift[b::32]
+            weight = (1 << b) - (1 << 32 if b == 31 else 0)  # int32 pattern
+            packed[:len(src)] |= ((rows[src] >> sh[:, None]) & 1) * weight
+        df = popcount32(packed).sum(dim=0, dtype=torch.int32)
+        key = f"block-{self._cold_seq:08d}"
+        self._cold[key] = encode_block(ColdBlock(
+            to_uint32(packed), df.cpu().numpy(), n, v))
+        self._cold_seq += 1
+
+    def all_time_index(self) -> PackedIndex:
+        """Live and cold tiers as one bare :class:`PackedIndex`: the cold
+        blocks' word rows (in key order) stacked under the live bitmap.
+        Counts are additive over disjoint doc sets, so any count method
+        over it answers over every doc ever ingested.  The live index
+        itself when nothing has spilled."""
+        if self._cold is None or len(self._cold) == 0:
+            return self._index
+        v = self._index.vocab_size
+        parts = [self._index.packed]
+        df = self._index.doc_freq
+        for key in sorted(self._cold):
+            blk = decode_block(self._cold[key])
+            cw, cdf = blk.packed, blk.doc_freq
+            if blk.vocab > v:
+                # only an all-zero overhang is droppable (shrink_vocab's
+                # contract on the live index)
+                if cdf[v:].any():
+                    raise ValueError(
+                        f"cold block {key} holds postings for terms >= the "
+                        f"live vocab {v}; cannot query it under this index")
+                cw, cdf = cw[:, :v], cdf[:v]
+            elif blk.vocab < v:
+                cw = np.pad(cw, ((0, 0), (0, v - blk.vocab)))
+                cdf = np.pad(cdf, (0, v - blk.vocab))
+            parts.append(from_uint32(cw, self.device))
+            df = df + torch.from_numpy(np.ascontiguousarray(cdf, np.int32)
+                                       ).to(self.device)
+        packed = torch.cat(parts)
+        return PackedIndex(packed, df, packed.shape[0] * 32)
 
     # -- scopes -------------------------------------------------------------
 
@@ -244,24 +417,56 @@ class QueryContext:
     def ingest(self, new_doc_terms, new_doc_valid, *,
                on_overflow: str = "raise",
                scope: Union[str, Sequence[str], None] = None) -> np.ndarray:
-        """Append a block of documents; returns the slot ids of its valid
-        rows.  The capacity check runs on the host BEFORE the scatter
-        (which would drop docs past capacity): ``on_overflow="raise"``
-        raises CapacityError, ``"grow"`` doubles the capacity until the
-        block fits.  ``scope`` tags the new block."""
+        """Ingest a block of documents; returns the slot ids of its valid
+        rows (in row order).
+
+        Append mode: the capacity check runs on the host BEFORE the
+        scatter (which would drop docs past capacity):
+        ``on_overflow="raise"`` raises CapacityError, ``"grow"`` doubles
+        the capacity until the block fits.
+
+        Window mode: the oldest blocks are evicted until the block fits
+        under ``window``, then it is scattered into ring slots
+        ``(tail + i) % capacity``; capacity never grows, and a block larger
+        than the window is refused.  ``scope`` tags the new block."""
         valid_np = np.asarray(torch.as_tensor(new_doc_valid).cpu()).astype(bool)
         n_new = int(valid_np.sum())
-        needed = self.n_docs + n_new
-        if needed > self._index.capacity:
-            if on_overflow == "grow":
-                self._index = grow_capacity(self._index, needed)
-            else:
-                raise CapacityError(
-                    f"ingest of {n_new} docs would exceed capacity "
-                    f"{self._index.capacity} (n_docs={self.n_docs}); "
-                    f"pass on_overflow='grow' to repack")
-        start = self.n_docs
-        slots = np.arange(start, start + n_new, dtype=np.int64)
+        if self._window is not None:
+            if n_new > self._window:
+                raise ValueError(
+                    f"ingest block of {n_new} docs exceeds window="
+                    f"{self._window}; it could never be live in full — "
+                    "split the block or raise the window")
+            self._evict_for(n_new)
+            cap = self._index.capacity
+            slots = (self._ring_tail + np.arange(n_new, dtype=np.int64)) % cap
+            # ingest_at needs all-zero target slots.  The eviction above
+            # guarantees that while the live region is circular-contiguous,
+            # but a set_window growth can leave wrapped live blocks
+            # stranded anywhere in the ring: evict (oldest first) until
+            # none overlaps the target range
+            stranded = []
+            while self._stranded and any(
+                    np.isin(b, slots).any()
+                    for b in list(self._blocks)[:self._stranded]):
+                stranded.append(self._blocks.popleft())
+                self._stranded -= 1
+            if stranded:
+                self._retire_slots(np.concatenate(stranded))
+            self._ring_tail = int((self._ring_tail + n_new) % cap)
+        else:
+            needed = self.n_docs + n_new
+            if needed > self._index.capacity:
+                if on_overflow == "grow":
+                    self._index = grow_capacity(self._index, needed)
+                else:
+                    raise CapacityError(
+                        f"ingest of {n_new} docs would exceed capacity "
+                        f"{self._index.capacity} (n_docs={self.n_docs}); "
+                        f"pass on_overflow='grow' to repack")
+            start = self.n_docs
+            slots = np.arange(start, start + n_new, dtype=np.int64)
+            self._ring_tail = start + n_new
         row_slots = np.zeros((valid_np.shape[0],), np.int64)
         row_slots[np.flatnonzero(valid_np)] = slots
         self._index = ingest_at(self._index, new_doc_terms,
@@ -309,9 +514,10 @@ class QueryContext:
         """Pad token lists to (N, max_len) and ingest; returns the new
         docs' slot ids.  ``on_long="raise"`` refuses documents longer than
         ``max_len`` (truncation would drop postings); ``"truncate"`` keeps
-        the first ``max_len`` ids."""
+        the first ``max_len`` ids.  ``window`` enters (or resizes)
+        sliding-window mode first, as :meth:`set_window` does."""
         if window is not None:
-            raise not_ported("the sliding window (window=)")
+            self.set_window(window)
         doc_terms = [list(t) for t in doc_terms]
         over = [(i, len(t)) for i, t in enumerate(doc_terms)
                 if len(t) > max_len]
@@ -332,28 +538,46 @@ class QueryContext:
 
 
 def context_from_state(arrays: Dict[str, np.ndarray], meta: dict, *,
-                       device="cuda") -> QueryContext:
+                       device="cuda", cold_store=None) -> QueryContext:
     """A port context equivalent to the reference context serialised by
     ``repro.core.snapshot.context_state``: ``arrays`` holds ``packed``
-    (uint32), ``doc_freq``, ``block_NNNN`` and ``scope_NNNN``; ``meta``
-    holds ``n_docs``, ``epoch``, ``scopes`` and ``n_blocks``.  The uint32
-    bitmaps are viewed as int32.  The window, cold tier and sketch state
-    are not ported; a state that uses them raises."""
-    if meta.get("window") is not None:
-        raise not_ported("the sliding window (window=)")
-    if meta.get("cold_keys"):
-        raise not_ported("the cold tier (cold_store=)")
+    (uint32), ``doc_freq``, ``block_NNNN``, ``scope_NNNN`` and the cold
+    payloads ``cold_NNNN``; ``meta`` holds ``n_docs``, ``epoch``, the ring
+    (``ring_tail``, ``window``, ``stranded``, ``evicted_docs_total``),
+    ``scopes``, ``n_blocks`` and the cold tier's ``cold_seq`` and
+    ``cold_keys``.  The uint32 bitmaps are viewed as int32.
+
+    ``cold_store`` receives the state's cold payloads (a fresh dict when
+    omitted and the state has any); a key whose payload is not among
+    ``arrays`` must already be in ``cold_store`` (say a directory the
+    reference spilled to).  Sketch state is not ported and is ignored."""
     dev = resolve_device(device)
     index = PackedIndex(
         from_uint32(arrays["packed"], dev),
         torch.from_numpy(np.array(arrays["doc_freq"], np.int32)).to(dev),
         int(meta["n_docs"]))
     ctx = QueryContext(index, device=dev)
-    ctx._blocks = [np.asarray(arrays[f"block_{i:04d}"], np.int64)
-                   for i in range(int(meta["n_blocks"]))]
+    ctx._blocks = deque(np.asarray(arrays[f"block_{i:04d}"], np.int64)
+                        for i in range(int(meta["n_blocks"])))
+    ctx._ring_tail = int(meta["ring_tail"])
+    ctx._window = None if meta["window"] is None else int(meta["window"])
+    ctx._stranded = int(meta["stranded"])
+    ctx.evicted_docs_total = int(meta["evicted_docs_total"])
     ctx.epoch = int(meta["epoch"])
     ctx._scopes = {name: np.ascontiguousarray(arrays[f"scope_{i:04d}"],
                                               np.uint32)
                    for i, name in enumerate(meta["scopes"])}
     ctx._scope_ver = {k: int(v) for k, v in meta.get("scope_ver", {}).items()}
+    cold_keys = meta.get("cold_keys", [])
+    if cold_keys and cold_store is None:
+        cold_store = {}
+    for i, key in enumerate(cold_keys):
+        blob = arrays.get(f"cold_{i:04d}")
+        if blob is not None:
+            cold_store[key] = np.asarray(blob).tobytes()
+        elif key not in cold_store:
+            raise KeyError(f"cold block {key!r} is neither in the state's "
+                           "arrays nor in cold_store")
+    ctx._cold = cold_store
+    ctx._cold_seq = int(meta.get("cold_seq", 0))
     return ctx

@@ -315,11 +315,15 @@ class CoocEngine:
         return self.submit(seed_terms, **overrides).result().edges()
 
     def ingest_docs(self, doc_terms: Sequence[Sequence[int]], *,
-                    max_len: int = 64, on_long: str = "raise", scope=None):
-        """Ingest through the context (capacity policy ``on_overflow``)."""
+                    max_len: int = 64, on_long: str = "raise",
+                    doc_window=None, scope=None):
+        """Ingest through the context (capacity policy ``on_overflow``).
+        ``doc_window`` is the context's sliding-window doc cap, named so
+        because the engine's own ``window=`` sizes the stats ring."""
         return self.ctx.ingest_docs(doc_terms, max_len=max_len,
                                     on_overflow=self.on_overflow,
-                                    on_long=on_long, scope=scope)
+                                    on_long=on_long, window=doc_window,
+                                    scope=scope)
 
     # -- stats --------------------------------------------------------------
 

@@ -108,8 +108,7 @@ def test_rejected_batch_leaves_no_trace():
 
 
 def test_unported_surfaces_raise():
-    for kw in ({"window": 64}, {"cold_store": {}}, {"mesh": object()},
-               {"devices": 2}):
+    for kw in ({"mesh": object()}, {"devices": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CoocIndex(device="cpu", **kw)
     idx = CoocIndex(device="cpu")
@@ -118,7 +117,7 @@ def test_unported_surfaces_raise():
     with pytest.raises(NotImplementedError):
         CoocIndex.load("somewhere")
     idx.add_documents(QUICKSTART[:2])
-    for kw in ({"mode": "approx"}, {"scope": "all-time"}):
+    for kw in ({"mode": "approx"},):
         for call in (idx.full_network, idx.network_stats):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 call(**kw)
@@ -131,6 +130,7 @@ import repro_torch, repro_torch.api, repro_torch.core, repro_torch.serve
 import repro_torch.kernels.build, repro_torch.kernels.postings
 import repro_torch.kernels.level_step, repro_torch.configs.cooccur_csl
 import repro_torch.kernels.cooccur, repro_torch.core.materialize
+import repro_torch.core.storage, repro_torch.core.atomic_io
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "repro" or m.startswith(("repro.", "jax"))))
 print(leaked)

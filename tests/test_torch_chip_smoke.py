@@ -136,6 +136,32 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert 'group=4 ' in out and '"tma": 1' in out
 
 
+def test_chip_smoke_stream_phase_rehearses_on_the_cpu(smoke, monkeypatch,
+                                                     capsys):
+    """A window of 300 docs (capacity 320), filled in blocks of 64, then
+    3 evicting rounds: the first writes slots 300..319 and wraps to 0."""
+    for name, value in [("STREAM_WINDOW", 300), ("STREAM_BLOCK", 64),
+                        ("STREAM_ROUNDS", 3)]:
+        monkeypatch.setattr(smoke, name, value)
+    launches = smoke.phase_stream(torch.device("cpu"))
+    # 3 post-ingest batches and the oracle batch at depth 2 through kernel
+    # 2, the oracle batch through kernel 1, one all-time sweep of 256 terms
+    assert launches == {"postings_counts": 2, "level_step": 8,
+                        "cooccur_counts": 1}
+    out = capsys.readouterr().out
+    assert "[stream] window=300 capacity=320 words=10 " in out
+    assert "fill_ingests=5 " in out
+    assert "[stream] round=0 slots=300..43 " in out
+    assert "[stream] round=2 slots=108..171 " in out
+    assert "evicted=192 cold_blocks=3 " in out
+    assert "payload_mb=0.002 encode_ms=" in out      # 2 words x 256 terms
+    assert "doc_freq_exact=True oracle_queries=8" in out
+    # 10 live words and 3 blocks of 2 words stacked
+    assert "all_time_words=16 all_time_slots=512 " in out
+    assert "gemm_oracle=True" in out
+    assert "[stream] fresh_docs=492 identical=True rows_checked=16" in out
+
+
 def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,
                                                                capsys):
     dev = torch.device("cpu")

@@ -230,7 +230,7 @@ def test_context_vocab_grow_and_shrink():
 
 def test_context_refuses_unported_modes():
     idx = T.pack_docs([[0]], 2, device="cpu")
-    for kw in ({"window": 8}, {"cold_store": {}}, {"mesh": object()}):
+    for kw in ({"mesh": object()},):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.QueryContext(idx, device="cpu", **kw)
 

@@ -220,7 +220,7 @@ def test_argument_checks_and_unported_modes():
             materialize(ctx, **kw)
     with pytest.raises(ValueError, match="QueryContext"):
         materialize(ctx.index, scope="a")
-    for kw in ({"mode": "approx"}, {"scope": "all-time"},
-               {"mesh": object()}, {"shard_strategy": "rows"}):
+    for kw in ({"mode": "approx"}, {"mesh": object()},
+               {"shard_strategy": "rows"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             materialize(ctx, **kw)
