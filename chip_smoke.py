@@ -9,8 +9,10 @@ holds each against its plain PyTorch version on the card, serves the
 paper's query at the CSL scale (396,209 docs, 65,536 terms, depth 3, top-k
 16, beam 32, 8 queries per batch) through ``QueryContext`` and
 ``CoocEngine`` with the two BFS kernel methods, materializes the whole
-CSL network (top-16 per term) through the co-occurrence kernel, and checks
-the answers against the host oracle.  Then it serves dlrm-rm2 at full size
+CSL network (top-16 per term) exactly through the co-occurrence kernel and
+approximately through the postings kernel, checks the answers against the
+host oracle, and saves and restores a streaming CSL ring on local disk.
+Then it serves dlrm-rm2 at full size
 through the dot-interaction kernel and runs the flash-decode kernel at
 llama3-8b's decode cells.  Phases:
 
@@ -18,41 +20,59 @@ llama3-8b's decode cells.  Phases:
   2. parity       the three CSL kernels == their plain versions, exact, at
                   small, ragged, sparse and mid shapes (2^15 docs x 2^13 terms,
                   256 rows, one group of 128-term row blocks), kernel 3 on
-                  both of its paths; methods "gemm" and
+                  both of its paths, kernel 1 on the approximate sweep's
+                  operands (postings-row masks against gathered candidate
+                  columns, C = 64, 256, 4096); methods "gemm" and
                   "popcount" served, and all four methods materialized,
                   at the mid size; kernels 4 and 5 == their plain
                   versions at odd shapes, within DOT_TOL / DECODE_TOL
   3. strings      the quickstart corpus through ``CoocIndex(device="cuda")``
                   for all four methods == the host oracle (queries, the
-                  whole network and its statistics), then an ingest
+                  whole network and its statistics), then an ingest; the
+                  index saved and loaded back answers like the live one,
+                  its approx network equals the CPU's, and the snapshot's
+                  blobs match their manifest's sha256
   4. csl          the CSL-scale serving run, per BFS kernel method
   5. materialize  the whole CSL network, method "pallas" (the kernel, one
                   launch per GROUP row blocks, on its TMA path) and
                   "gemm" (``torch._int_mm``): identical, 16 rows == the
                   host oracle
-  6. kernels      each CSL kernel timed at the main path's shapes beside
+  6. approx       the approximate CSL sweep (k 16, threshold 0.5, 128
+                  permutations): signatures, host banding, each row block
+                  counted against its candidates through kernel 1
+                  ("pallas") and ``torch._int_mm`` ("gemm"): identical;
+                  every emitted weight == its pair's count; 64 signatures
+                  == numpy
+  7. kernels      each CSL kernel timed at the main path's shapes beside
                   its plain version, its bound and a PyTorch yardstick
                   (kernels 1 and 2 at the level-0, level-1 and level-2
                   frontiers of the first batch, kernel 1 with the work its
                   row tiles walk and its compaction launch's time; kernel
                   3 and ``torch._int_mm`` at 1, 2, 4 and 8 row blocks a
                   launch); then the CSL context is freed
-  7. stream       the streaming tier at the stream_ingest cell: a window of
+  8. stream       the streaming tier at the stream_ingest cell: a window of
                   396,209 CSL docs (capacity pinned at 396,224 slots)
                   filled in blocks of 4,096, then 8 rounds of 4,096 new
-                  docs, each evicting and spilling the oldest block to a
-                  cold store, each followed by a "fused" batch; the live
-                  docs' doc_freq and queries ("fused", "pallas") == the
-                  host oracle; the scope="all-time" network (kernel 3 over
-                  the live and cold tiers stacked) == that of a fresh
-                  context over all 428,977 docs; one "gemm" rebuild timed
-  8. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
+                  docs tagged "rounds", each evicting and spilling the
+                  oldest block to a cold store, each followed by a "fused"
+                  batch; the live docs' doc_freq and queries ("fused",
+                  "pallas") == the host oracle; the scope="all-time"
+                  network (kernel 3 over the live and cold tiers stacked)
+                  == that of a fresh context over all 428,977 docs; one
+                  "gemm" rebuild timed
+  9. snapshot     the stream's ring (97 live blocks, 8 cold) sketched, its
+                  all-time approx network built (kernel 1), saved to local
+                  disk (about 6.8 GB) and loaded back on the card: equal
+                  bits, doc_freq, ring, scopes and cold payloads; no block
+                  rehashed; the same "fused" batch and approx network; one
+                  more evicting ingest leaves both identical
+ 10. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
                   against float64; kernel 4 and torch.bmm's full Gram
                   timed at each cell's interaction input, the kernels' own
                   device time (profiler) apart from the host time a call
-  9. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
+ 11. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
                   long_500k, ragged lengths (a 0 and a 1 among them) ==
                   the plain version; then timed at full lengths
 
@@ -61,7 +81,7 @@ two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
 imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 
-``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 8 alone, to
+``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 10 alone, to
 compare kernel 4 between two trees on one card, and prints no result line.
 """
 from __future__ import annotations
@@ -89,6 +109,12 @@ N_QUERIES = 64
 N_ORACLE = 8                   # queries per method held against the oracle
 MID_DOCS, MID_TERMS = 1 << 15, 1 << 13
 MAT_K, ROW_TILE = 16, 128      # materialization: top-k per term, row block
+# approximate materialization at its defaults (threshold 0.5, 128
+# permutations: 26 bands of 4 rows); kernel 1 held against its plain
+# version on gathered candidate tiles of these widths
+APPROX_PARITY_COLS = (64, 256, 4096)
+N_SIGS_CHECKED = 64            # CSL signatures held against numpy
+SHA_PROBE_BYTES = 1 << 30      # bytes hashed to time the host's sha256
 N_ROWS_CHECKED = 16            # materialized CSL rows held against the oracle
 # the streaming tier at the reference's stream_ingest cell
 # (src/repro/configs/base.py COOC_SHAPES): a window of the CSL corpus,
@@ -400,6 +426,34 @@ def _parity_decode(dev):
     return cases
 
 
+def _parity_approx(rng, ctx, df):
+    """Kernel 1 == its plain version on the approximate sweep's operands:
+    (ROW_TILE, W) masks taken from postings rows (dense head rows, sparse
+    tail rows) against (W, C) gathered candidate columns whose pad columns
+    are zero, for C in APPROX_PARITY_COLS."""
+    import torch
+    from repro_torch.core import sketch
+    from repro_torch.kernels import ops, ref
+    v, w = ctx.vocab_size, ctx.index.n_words
+    order = np.argsort(-df, kind="stable")
+    live = order[df[order] > 0]
+    rows = np.concatenate([live[:ROW_TILE // 2], live[-(ROW_TILE // 2):]])
+    masks = ctx.packed_t_pad()[torch.from_numpy(rows).to(ctx.device), :w]
+    cases = 0
+    for c in APPROX_PARITY_COLS:
+        cols = np.sort(rng.choice(v, min(c, v) * 3 // 4, replace=False))
+        cand = torch.from_numpy(sketch.pad_candidates(cols, v)[:c]).to(
+            ctx.device)
+        sub = ctx.index.packed.index_select(1, cand.clamp(min=0))
+        sub[:, cand < 0] = 0
+        if not torch.equal(ops.postings_counts(masks, sub),
+                           ref.postings_counts_ref(masks, sub)):
+            raise AssertionError(f"postings kernel != plain at approx "
+                                 f"operands, C={c}")
+        cases += 1
+    return cases
+
+
 def phase_parity(dev):
     """Both kernels against their plain versions on the card; then the
     plain methods "gemm" and "popcount" served at the mid size."""
@@ -508,6 +562,7 @@ def phase_parity(dev):
             raise AssertionError(f"cooccur kernel != torch._int_mm on "
                                  f"{kind} operands")
     cases += 3
+    cases += _parity_approx(rng, ctx, df)
     say("parity", cases=cases, exact=True,
         mid_rows=st.masks.shape[0], mid_words=ctx.index.n_words,
         mid_terms=MID_TERMS)
@@ -605,6 +660,67 @@ def phase_strings(dev):
         raise AssertionError(f"a kernel was not launched: {launches}")
     say("strings", methods=4, edges=len(want), full_edges=len(want_full),
         oracle=True, ingest_visible=True, launches=json.dumps(launches))
+    _strings_snapshot(dev)
+
+
+def _same_stats(a, b):
+    return all(np.array_equal(np.asarray(x), np.asarray(y))
+               for x, y in zip(a, b))
+
+
+def _strings_snapshot(dev):
+    """The quickstart index saved and loaded back on the card answers like
+    the live one; its approx network equals the CPU's (plain versions);
+    the port's snapshot reads back with every blob's sha256 checked."""
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.api import CoocIndex
+    from repro_torch.core import read_snapshot
+    from repro_torch.kernels import ops
+
+    plan = dict(depth=2, topk=6, beam=8, q_batch=4)
+    idx = CoocIndex.from_texts(QUICKSTART, device=dev, **plan)
+    cpu = CoocIndex.from_texts(QUICKSTART, device="cpu", **plan)
+    tmp = tempfile.mkdtemp(prefix="cooc-strings-")
+    try:
+        final = idx.save(os.path.join(tmp, "snap"))
+        loaded = CoocIndex.load(os.path.join(tmp, "snap"), device=dev)
+        approx_launches = 0
+        for method in ("gemm", "popcount", "pallas", "fused"):
+            if (loaded.network(["networks"], method=method)
+                    != idx.network(["networks"], method=method)):
+                raise AssertionError(f"loaded quickstart query ({method}) "
+                                     "!= live")
+            if (loaded.full_network(k=4, method=method)
+                    != idx.full_network(k=4, method=method)):
+                raise AssertionError(f"loaded quickstart network ({method}) "
+                                     "!= live")
+            if not _same_stats(loaded.network_stats(k=4, method=method),
+                               idx.network_stats(k=4, method=method)):
+                raise AssertionError(f"loaded quickstart stats ({method}) "
+                                     "!= live")
+            before = ops.LAUNCHES["postings_counts"]
+            approx = idx.full_network(k=4, method=method, mode="approx")
+            approx_launches += ops.LAUNCHES["postings_counts"] - before
+            if approx != cpu.full_network(k=4, method=method, mode="approx"):
+                raise AssertionError(f"quickstart approx network ({method})"
+                                     " != the CPU's")
+        if approx_launches == 0:
+            raise AssertionError("the approx quickstart launched no kernel 1")
+        arrays, _ = read_snapshot(os.path.join(tmp, "snap"), verify=True)
+        with open(os.path.join(final, "manifest.json")) as f:
+            blobs = json.load(f)["blobs"]
+        for name, blob in blobs.items():
+            with open(os.path.join(final, blob["file"]), "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != blob["sha256"]:
+                    raise AssertionError(f"blob {name} != its manifest sha")
+        say("strings", snapshot_blobs=len(arrays), loaded_equal=True,
+            approx_equal_cpu=True, sha256_checked=len(blobs),
+            approx_launches=approx_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_csl(dev):
@@ -759,6 +875,167 @@ def phase_materialize(dev, ctx, hidx, launches):
         max_degree=stats.max_degree, max_weight=stats.max_weight,
         max_memory_allocated_gb=
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return nets["pallas"], secs["pallas"]
+
+
+def _timed(module, name, secs, outs=None):
+    """Wrap ``module.name`` so that each call adds its host seconds (after a
+    synchronize) to ``secs[name]`` (and leaves its result in
+    ``outs[name]``); returns the undo."""
+    import torch
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+        if outs is not None:
+            outs[name] = out
+        return out
+
+    setattr(module, name, timed)
+    return lambda: setattr(module, name, fn)
+
+
+def _same_approx(a, b):
+    return (same_network(a[:4], b[:4]) and a.recall_estimate
+            == b.recall_estimate and a.stats == b.stats)
+
+
+def _check_approx_weights(net, exact, hidx, k):
+    """Every valid approx edge's weight is its pair's count: read from
+    the exact network where the pair is among the row's top ``k``, else
+    from the host oracle's postings.  Returns (edges, from the oracle)."""
+    ok = net.valid.cpu().numpy()
+    src = net.src.cpu().numpy()[ok]
+    dst = net.dst.cpu().numpy()[ok]
+    w = net.weight.cpu().numpy()[ok]
+    ex_dst = exact.dst.cpu().numpy().reshape(-1, k)[src]
+    ex_w = exact.weight.cpu().numpy().reshape(-1, k)[src]
+    hit = ex_dst == dst[:, None]
+    found = hit.any(axis=1)
+    if not (ex_w[hit] == w[found]).all():
+        raise AssertionError("an approx weight != the exact network's")
+    for a, b, wt in zip(src[~found], dst[~found], w[~found]):
+        n = len(np.intersect1d(hidx.postings[a], hidx.postings[b],
+                               assume_unique=True))
+        if n != wt:
+            raise AssertionError(f"approx edge ({a}, {b}) weight {wt} != "
+                                 f"its count {n}")
+    return len(w), int((~found).sum())
+
+
+def _approx_tile_kernel(ctx, per_block):
+    """Kernel 1 on the sweep's widest candidate tile, built as the sweep
+    builds it: == its plain version, and timed beside it and its bound."""
+    import torch
+    from repro_torch.core import sketch
+    from repro_torch.kernels import ops, ref
+    v, w = ctx.vocab_size, ctx.index.n_words
+    bi = max((i for i, c in enumerate(per_block) if c is not None),
+             key=lambda i: len(per_block[i]))
+    cand = torch.from_numpy(sketch.pad_candidates(per_block[bi], v)).to(
+        ctx.device)
+    masks = ctx.packed_t_pad()[bi * ROW_TILE:(bi + 1) * ROW_TILE, :w]
+    masks = masks.contiguous()
+    sub = ctx.index.packed.index_select(1, cand.clamp(min=0))
+    sub[:, cand < 0] = 0
+    got = ops.postings_counts(masks, sub)
+    want, plain_ms = _event_ms(lambda: ref.postings_counts_ref(masks, sub))
+    if not torch.equal(got, want):
+        raise AssertionError("postings kernel != plain on the widest CSL "
+                             "approx tile")
+    ms = cuda_ms(lambda: ops.postings_counts(masks, sub), 20)
+    nz = masks != 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    c = sub.shape[1]
+    bound_ms, bound_by, n_ops, n_bytes = _bound(
+        int(nz.sum()), int(nz.any(dim=0).sum()), masks.shape[0] * c * 4,
+        masks.numel() * 4, c, sms, hz)
+    say("approx", kernel="postings_counts", row_block=bi, rows=ROW_TILE,
+        words=w, columns=c, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, popcounts=n_ops,
+        bytes=n_bytes, max_abs_err=0)
+
+
+def phase_approx(dev, ctx, hidx, exact, exact_s):
+    """The approximate sweep at the CSL scale, k = 16 at the defaults:
+    MinHash signatures of every term (128 permutations), LSH banding on
+    the host, and each row block counted against its candidate columns
+    through kernel 1 ("pallas") and through ``torch._int_mm`` ("gemm")."""
+    import importlib
+    import torch
+    from repro_torch.core import materialize, sketch
+    from repro_torch.kernels import ops
+    mat = importlib.import_module("repro_torch.core.materialize")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sigs = ctx.term_signatures(num_perm=sketch.DEFAULT_NUM_PERM)
+    torch.cuda.synchronize()
+    sig_s = time.perf_counter() - t0
+    nets, secs, outs = {}, {}, {}
+    for method in ("pallas", "gemm"):
+        parts = {}
+        undo = [_timed(mat, name, parts, outs)
+                for name in ("candidate_columns", "_approx_sweep")]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            nets[method] = materialize(ctx, k=MAT_K, mode="approx",
+                                       method=method, row_tile=ROW_TILE,
+                                       use_cache=False)
+            torch.cuda.synchronize()
+        finally:
+            for fn in undo:
+                fn()
+        secs[method] = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        st = nets[method].stats
+        if method == "pallas" and counts["postings_counts"] == 0:
+            raise AssertionError("the approx sweep never launched kernel 1")
+        say("approx", method=method, k=MAT_K, seconds=f"{secs[method]:.3f}",
+            band_s=f"{parts['candidate_columns']:.3f}",
+            count_s=f"{parts['_approx_sweep']:.3f}",
+            tiles_counted=st.tiles_counted, tiles_total=st.tiles_total,
+            tiles_fraction=f"{st.tiles_fraction:.6f}",
+            candidate_pairs=st.candidate_pairs, bands=st.bands,
+            rows_per_band=st.rows_per_band,
+            launches=json.dumps(counts))
+    if not _same_approx(nets["pallas"], nets["gemm"]):
+        raise AssertionError("CSL approx: pallas != gemm")
+    _approx_tile_kernel(ctx, outs["candidate_columns"][0])
+    net = nets["pallas"]
+    t0 = time.perf_counter()
+    edges, from_oracle = _check_approx_weights(net, exact, hidx, MAT_K)
+    weights_s = time.perf_counter() - t0
+    # signatures of sampled terms against numpy: docs are slots here
+    a, b = sketch.hash_coefficients(sketch.DEFAULT_NUM_PERM)
+    df = ctx.index.doc_freq.cpu().numpy()
+    rng = np.random.default_rng(3)
+    terms = np.concatenate([
+        rng.choice(np.flatnonzero(df > 0), N_SIGS_CHECKED - 1,
+                   replace=False), np.flatnonzero(df == 0)[:1]])
+    got = sigs[torch.from_numpy(terms).to(ctx.device)].cpu().numpy().view(
+        np.uint32)
+    for t, row in zip(terms, got):
+        d = hidx.postings[t].astype(np.uint64)
+        want = np.full(len(a), sketch.SIG_EMPTY, np.uint64)
+        if len(d):
+            want = ((a.astype(np.uint64)[:, None] * d[None, :]
+                     + b[:, None]) & 0xFFFFFFFF).min(axis=1)
+        if not np.array_equal(row.astype(np.uint64), want):
+            raise AssertionError(f"CSL signature of term {t} != numpy")
+    say("approx", identical=True, sig_s=f"{sig_s:.3f}",
+        signatures_checked=len(terms), edges=edges,
+        edges_from_exact=edges - from_oracle,
+        edges_from_oracle=from_oracle, weights_s=f"{weights_s:.2f}",
+        recall_estimate=f"{net.recall_estimate:.6f}",
+        approx_s=f"{secs['pallas']:.3f}", exact_s=f"{exact_s:.3f}",
+        max_memory_allocated_gb=
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
 
 def _pad_block(docs, max_len=64):
@@ -852,7 +1129,7 @@ def phase_stream(dev):
     for r, block in enumerate(blocks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        slots = ctx.ingest(*block)
+        slots = ctx.ingest(*block, scope="rounds")
         torch.cuda.synchronize()
         ingest_ms.append((time.perf_counter() - t0) * 1e3)
         futs = [eng.submit([s]) for s in seeds]
@@ -956,11 +1233,13 @@ def phase_stream(dev):
         x_dense_gb=f"{xd.numel() / 1e9:.3f}",
         gemm_batch_ms=f"{(time.perf_counter() - t0) * 1e3:.3f}",
         gemm_oracle=True)
-    alive = weakref.ref(ctx)
-    del xd, gemm, eng, futs, ctx         # a future refers to its engine
+    # the ring stays for the snapshot phase; its dense artifacts go
+    alive = weakref.ref(xd)
+    del xd, gemm, eng, futs              # a future refers to its engine
+    ctx._cache.clear()
     if alive() is not None:
-        raise AssertionError("the windowed context (ring and x_dense) "
-                             "outlived its last use")
+        raise AssertionError("the windowed context's x_dense outlived its "
+                             "last use")
     torch.cuda.empty_cache()
 
     # every doc ever ingested, in one append-mode context
@@ -980,7 +1259,174 @@ def phase_stream(dev):
         max_memory_allocated_gb=
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
         seconds=f"{time.perf_counter() - t_phase:.1f}")
-    return launches
+    return launches, {"ctx": ctx, "seeds": seeds}
+
+
+def _snapshot_dir(need_bytes):
+    """A fresh temporary directory on a file system with room for
+    ``need_bytes`` and a tenth more: the system's temporary directory, else
+    the checkout's.  Raises when neither has the room."""
+    import shutil
+    import tempfile
+    free = {}
+    for base in (tempfile.gettempdir(), str(ROOT)):
+        free[base] = shutil.disk_usage(base).free
+        if free[base] > 1.1 * need_bytes:
+            return tempfile.mkdtemp(prefix="cooc-snapshot-", dir=base)
+    raise RuntimeError(
+        f"no room for a {need_bytes / 1e9:.2f} GB snapshot: free bytes "
+        f"{free}; point TMPDIR at a larger local disk")
+
+
+def _fused_edges(ctx, dev, seeds):
+    from repro_torch.serve import CoocEngine
+    eng = CoocEngine(ctx, device=dev, depth=STREAM_DEPTH, topk=TOPK,
+                     beam=BEAM, q_batch=Q_BATCH, method="fused")
+    futs = [eng.submit([s]) for s in seeds]
+    eng.run_until_drained()
+    return [f.result().edges() for f in futs]
+
+
+def _same_state(a, b):
+    """Bits, doc_freq, ring, scopes and cold payload bytes of two
+    contexts; raises on the first difference."""
+    import torch
+    checks = {
+        "packed": torch.equal(a.index.packed, b.index.packed),
+        "doc_freq": torch.equal(a.index.doc_freq, b.index.doc_freq),
+        "ring": (a.n_docs, a._ring_tail, a.window, a._stranded,
+                 a.evicted_docs_total, a.epoch, a.n_blocks)
+                == (b.n_docs, b._ring_tail, b.window, b._stranded,
+                    b.evicted_docs_total, b.epoch, b.n_blocks)
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a._blocks, b._blocks)),
+        "scopes": a.scope_names() == b.scope_names() and all(
+            np.array_equal(a._scope_host(n), b._scope_host(n))
+            and a.scope_version(n) == b.scope_version(n)
+            for n in a.scope_names()),
+        "cold": (a.cold_version() == b.cold_version()
+                 and sorted(a.cold_store) == sorted(b.cold_store)
+                 and all(a.cold_store[key] == b.cold_store[key]
+                         for key in a.cold_store)),
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"restored context differs in {bad}")
+
+
+def phase_snapshot(dev, state):
+    """The stream phase's windowed context (97 live blocks, 8 cold blocks,
+    the tag scope "rounds") sketched, its all-time approx network built,
+    saved to local disk and loaded back on the card; the restored context
+    equals the live one, rehashes no block, serves the same answers and
+    keeps streaming identically."""
+    import hashlib
+    import importlib
+    import os
+    import shutil
+    import torch
+    from repro_torch.core import (atomic_io, load_context, materialize,
+                                  save_context)
+    from repro_torch.data import synthetic_csl
+    from repro_torch.kernels import ops
+    sk = importlib.import_module("repro_torch.core.sketch")
+
+    t_phase = time.perf_counter()
+    ctx, seeds = state.pop("ctx"), state.pop("seeds")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sig = ctx.term_signatures(num_perm=sk.DEFAULT_NUM_PERM)
+    torch.cuda.synchronize()
+    sig_s = time.perf_counter() - t0
+    sketch_bytes = sum(e[1].numel() * 4 for ents in
+                       ctx._sketch_blocks.values() for e in ents)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    net = materialize(ctx, k=MAT_K, scope="all-time", mode="approx",
+                      method="pallas", row_tile=ROW_TILE)
+    torch.cuda.synchronize()
+    approx_s = time.perf_counter() - t0
+    if ops.LAUNCHES["postings_counts"] == 0:
+        raise AssertionError("the all-time approx sweep never launched "
+                             "kernel 1")
+    say("snapshot", live_blocks=ctx.n_blocks, cold_blocks=ctx.cold_blocks(),
+        scopes=",".join(ctx.scope_names()), sig_s=f"{sig_s:.3f}",
+        sketch_gb=f"{sketch_bytes / 1e9:.3f}",
+        all_time_approx_s=f"{approx_s:.3f}",
+        tiles_fraction=f"{net.stats.tiles_fraction:.6f}",
+        candidate_pairs=net.stats.candidate_pairs,
+        launches=json.dumps(dict(ops.LAUNCHES)))
+
+    need = (ctx.index.packed.numel() * 4 + sketch_bytes
+            + sum(len(x) for x in ctx.cold_store.values()))
+    tmp = _snapshot_dir(need)
+    fsync = {}
+    try:
+        path = os.path.join(tmp, "snap")
+        undo = _timed(atomic_io, "fsync_path", fsync)
+        t0 = time.perf_counter()
+        try:
+            final = save_context(ctx, path)
+        finally:
+            undo()
+        save_s = time.perf_counter() - t0
+        gb = sum(os.path.getsize(os.path.join(final, f))
+                 for f in os.listdir(final)) / 1e9
+        t0 = time.perf_counter()
+        restored = load_context(path, device=dev, verify=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the host's share: its sha256 rate (both directions hash every byte)
+    buf = bytes(SHA_PROBE_BYTES)
+    t0 = time.perf_counter()
+    hashlib.sha256(buf).hexdigest()
+    sha_rate = SHA_PROBE_BYTES / (time.perf_counter() - t0) / 1e9
+    del buf
+    say("snapshot", dir=os.path.dirname(tmp), snapshot_gb=f"{gb:.3f}",
+        save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+        save_gb_per_s=f"{gb / save_s:.3f}",
+        load_gb_per_s=f"{gb / load_s:.3f}",
+        fsync_s=f"{fsync['fsync_path']:.3f}",
+        host_sha256_gb_per_s=f"{sha_rate:.3f}")
+
+    _same_state(ctx, restored)
+    hashed = []
+    block_signatures = sk.block_signatures
+    sk.block_signatures = lambda *a: hashed.append(1) or block_signatures(*a)
+    try:
+        sig2 = restored.term_signatures(num_perm=sk.DEFAULT_NUM_PERM)
+    finally:
+        sk.block_signatures = block_signatures
+    if hashed or not torch.equal(sig, sig2):
+        raise AssertionError(f"the restore rehashed {len(hashed)} blocks or "
+                             "its signatures differ")
+    del sig, sig2
+    if _fused_edges(restored, dev, seeds) != _fused_edges(ctx, dev, seeds):
+        raise AssertionError("restored fused batch != live")
+    net2 = materialize(restored, k=MAT_K, scope="all-time", mode="approx",
+                       method="pallas", row_tile=ROW_TILE)
+    if not _same_approx(net, net2):
+        raise AssertionError("restored all-time approx network != live")
+    block = _pad_block(synthetic_csl(STREAM_BLOCK, ctx.vocab_size, seed=3))
+    slots = [c.ingest(*block, scope="rounds") for c in (ctx, restored)]
+    if not np.array_equal(*slots):
+        raise AssertionError("the next ingest took other slots")
+    _same_state(ctx, restored)
+    if _fused_edges(restored, dev, seeds) != _fused_edges(ctx, dev, seeds):
+        raise AssertionError("fused batch after the next ingest != live")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    alive = [weakref.ref(c) for c in (ctx, restored)]
+    del ctx, restored, net, net2
+    if any(a() is not None for a in alive):
+        raise AssertionError("a windowed context outlived its last use")
+    torch.cuda.empty_cache()
+    say("snapshot", restored_equal=True, rehashed_blocks=0,
+        fused_identical=True, approx_identical=True,
+        next_ingest_identical=True, max_memory_allocated_gb=f"{peak:.3f}",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def _bound(nonzero_words, active_words, out_bytes, mask_bytes, v, sms, hz):
@@ -1640,11 +2086,12 @@ def main(argv=()) -> int:
     phase_parity(dev)
     phase_strings(dev)
     ctx, hidx, seeds, launches = phase_csl(dev)
-    phase_materialize(dev, ctx, hidx, launches)
+    exact, exact_s = phase_materialize(dev, ctx, hidx, launches)
+    phase_approx(dev, ctx, hidx, exact, exact_s)
     kernels = phase_kernels(dev, ctx, seeds, launches)
-    del ctx, hidx                      # the CSL artifacts, about 33 GB
+    del ctx, hidx, exact               # the CSL artifacts, about 33 GB
     torch.cuda.empty_cache()
-    phase_stream(dev)
+    phase_snapshot(dev, phase_stream(dev)[1])
     torch.cuda.empty_cache()
     dlrm = phase_dlrm(dev, launches)
     kernels.append(phase_kernel_dot(dev, *dlrm, launches))

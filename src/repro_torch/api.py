@@ -22,11 +22,14 @@ pinned), and ``cold_store=`` keeps every evicted batch in a cold tier that
 
 :meth:`CoocIndex.full_network` and :meth:`CoocIndex.network_stats` give the
 whole-corpus network (every term's top-``k`` neighbors) and its global
-statistics, exactly, through :func:`repro_torch.core.materialize`.
+statistics through :func:`repro_torch.core.materialize`, exactly or, with
+``mode="approx"``, sketch-pruned.  :meth:`CoocIndex.save` and
+:meth:`CoocIndex.load` snapshot and restore the whole index in the
+reference's format (:mod:`repro_torch.core.snapshot`), so either package
+restores what the other saved.
 
-Not ported yet (``ROADMAP.md``): device meshes, approximate
-materialization (``mode="approx"``) and snapshots; those arguments and
-methods raise ``NotImplementedError``.
+Not ported yet (``ROADMAP.md``): device meshes; ``mesh=`` and ``devices=``
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from repro_torch.core import snapshot
 from repro_torch.core.inverted_index import Lexicon
 from repro_torch.core.materialize import materialize
 from repro_torch.core.network import (
@@ -323,14 +327,86 @@ class CoocIndex:
         net = self._materialize(k, scope, now, method, mode, **kwargs)
         return global_statistics(net, self.ctx.vocab_size)
 
-    # -- not ported yet -----------------------------------------------------
+    # -- persistence --------------------------------------------------------
 
-    def save(self, *args, **kwargs):
-        raise not_ported("snapshots (save)")
+    def save(self, path: str, *, keep: int = 2) -> str:
+        """Snapshot the whole index state under ``path``: packed postings,
+        lexicon, streaming ring and scopes, doc timestamps, time-bucket
+        state, engine plan defaults, cold-tier blocks and sketch state,
+        through the crash-safe commit protocol of
+        :mod:`repro_torch.core.snapshot` (the reference's format).  ``keep``
+        retains that many snapshot generations.  Returns the committed
+        snapshot directory."""
+        extra_arrays = {"doc_time": np.asarray(self._doc_time, np.float64)}
+        extra_meta = {
+            "kind": "cooc",
+            "cooc": {
+                "lexicon": list(self.lexicon.id_to_term),
+                "stopwords": sorted(self.stopwords),
+                "engine": {"depth": self.engine.depth,
+                           "topk": self.engine.topk,
+                           "beam": self.engine.beam,
+                           "dedup": self.engine.dedup,
+                           "method": self.engine.method,
+                           "q_batch": self.engine.q_batch,
+                           "on_overflow": self.engine.on_overflow,
+                           "window": self.engine.window},
+                "bucket_state": {k: [int(e), float(c)]
+                                 for k, (e, c) in self._bucket_state.items()},
+            },
+        }
+        return snapshot.save_context(self.ctx, path,
+                                     extra_arrays=extra_arrays,
+                                     extra_meta=extra_meta, keep=keep)
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise not_ported("snapshots (load)")
+    def load(cls, path: str, *, device="cuda", cold_store=None,
+             verify: bool = True, mesh=None, devices=None) -> "CoocIndex":
+        """Restore a :meth:`save` snapshot (of either package) onto
+        ``device``: it answers every query exactly like the saved index;
+        warm caches rebuild lazily.  ``cold_store`` receives the
+        snapshot's spilled blocks (the constructor's ``make_storage``
+        configs; a fresh dict when omitted and the snapshot has any).  A
+        bare-context snapshot raises :class:`SnapshotError`."""
+        if mesh is not None or devices is not None:
+            raise not_ported("sharded serving (mesh=/devices=)")
+        dev = resolve_device(device)
+        if cold_store is not None:
+            cold_store = make_storage(cold_store)
+        arrays, meta = snapshot.read_snapshot(path, verify=verify)
+        if meta.get("kind") != "cooc":
+            raise snapshot.SnapshotError(
+                f"snapshot under {path!r} is a bare context (kind="
+                f"{meta.get('kind')!r}); restore it with "
+                "repro_torch.core.snapshot.load_context instead")
+        ctx = snapshot.context_from_state(arrays, meta, device=dev,
+                                          cold_store=cold_store)
+        cm = meta["cooc"]
+        eng = cm["engine"]
+        idx = cls.__new__(cls)
+        idx.lexicon = Lexicon()
+        for term in cm["lexicon"]:
+            idx.lexicon.add(term)
+        idx.stopwords = set(cm["stopwords"])
+        idx.ctx = ctx
+        idx.engine = CoocEngine(ctx, device=dev, depth=int(eng["depth"]),
+                                topk=int(eng["topk"]), beam=int(eng["beam"]),
+                                dedup=bool(eng["dedup"]),
+                                method=eng["method"],
+                                q_batch=int(eng["q_batch"]),
+                                on_overflow=eng["on_overflow"],
+                                window=int(eng.get("window", 2048)))
+        doc_time = np.array(arrays["doc_time"], np.float64)
+        cap = ctx.index.capacity
+        if cap > len(doc_time):
+            doc_time = np.pad(doc_time, (0, cap - len(doc_time)))
+        idx._doc_time = doc_time
+        idx._lt_epoch = -1
+        idx._lt_slots = np.zeros((0,), np.int64)
+        idx._lt_times = np.zeros((0,), np.float64)
+        idx._bucket_state = {k: (int(v[0]), float(v[1]))
+                             for k, v in cm["bucket_state"].items()}
+        return idx
 
     # -- introspection ------------------------------------------------------
 

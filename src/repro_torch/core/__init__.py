@@ -1,7 +1,8 @@
 """The paper's core in PyTorch: the bit-packed inverted index, the BFS
 construction (Algorithm 3), the typed query surface, the query context
-with its sliding window and cold tier, and exact whole-corpus
-materialization.  Mirrors ``repro.core`` for the parts ported so far."""
+with its sliding window and cold tier, exact and sketch-pruned
+whole-corpus materialization, and snapshots.  Mirrors ``repro.core`` for
+the parts ported so far."""
 from repro_torch.core.inverted_index import (  # noqa: F401
     Lexicon,
     PackedIndex,
@@ -49,7 +50,6 @@ from repro_torch.core.query import (  # noqa: F401
 from repro_torch.core.query_context import (  # noqa: F401
     CapacityError,
     QueryContext,
-    context_from_state,
 )
 from repro_torch.core.cooccurrence import (  # noqa: F401
     HostIndex,
@@ -62,6 +62,17 @@ from repro_torch.core.cooccurrence import (  # noqa: F401
     traversal_construct_host,
 )
 from repro_torch.core.materialize import materialize  # noqa: F401,E402
+from repro_torch.core.sketch import (  # noqa: F401
+    ApproxCoocNetwork,
+    ApproxStats,
+    block_signatures,
+    candidate_columns,
+    hash_coefficients,
+    lsh_params,
+    lsh_probabilities,
+    merge_signatures,
+    minhash_signatures,
+)
 from repro_torch.core.atomic_io import (  # noqa: F401
     atomic_write_bytes,
     atomic_write_text,
@@ -74,4 +85,13 @@ from repro_torch.core.storage import (  # noqa: F401
     decode_block,
     encode_block,
     make_storage,
+)
+from repro_torch.core.snapshot import (  # noqa: F401
+    SnapshotError,
+    context_from_state,
+    context_state,
+    load_context,
+    read_snapshot,
+    save_context,
+    write_snapshot,
 )

@@ -34,13 +34,22 @@ the same sweep over :meth:`QueryContext.all_time_index`, the cold blocks'
 word rows stacked under the live bitmap, cached per (epoch,
 ``cold_version()``).  With nothing spilled it is the live network.
 
-Not ported yet (``ROADMAP.md``): ``mode="approx"`` (sketches), ``mesh=``
-and the sharded strategies; each raises ``NotImplementedError``.
+**Approximate mode** (``mode="approx"``, :mod:`repro_torch.core.sketch`):
+per-term MinHash signatures feed LSH banding on the host, and each row
+block is counted exactly against its candidate columns only, gathered
+into a (W, C) sub-index (pad columns zeroed) that the count-method
+registry takes unchanged — under ``"pallas"`` that is the postings kernel
+(``kernels.ops.postings_counts``) on the gathered operands.  Emitted edge
+weights are exact; edges can only be missed.
+
+Not ported yet (``ROADMAP.md``): ``mesh=`` and the sharded strategies;
+each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.cooccurrence import _resolve_operands, chunked_top_k
@@ -48,11 +57,26 @@ from repro_torch.core.inverted_index import (
     PackedIndex,
     dense_operand,
     from_uint32,
+    to_uint32,
     unpack_bitmap,
 )
 from repro_torch.core.network import CoocNetwork
 from repro_torch.core.query import get_count_method
 from repro_torch.core.query_context import QueryContext, not_ported
+from repro_torch.core.sketch import (
+    DEFAULT_NUM_PERM,
+    DEFAULT_THRESHOLD,
+    TILE_QUANTUM,
+    ApproxCoocNetwork,
+    ApproxStats,
+    candidate_columns,
+    estimate_recall,
+    gathered_top_k,
+    hash_coefficients,
+    lsh_params,
+    minhash_signatures,
+    pad_candidates,
+)
 from repro_torch.kernels import ops
 
 
@@ -66,6 +90,15 @@ def _round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
 
 
+def _row_masks(rows: torch.Tensor, r0: int, bm: int) -> torch.Tensor:
+    """The (bm, W) filter bitmaps of terms ``[r0, r0 + bm)``: their rows of
+    the (V, W) transposed postings, all-zero past V."""
+    masks = rows.new_zeros((bm, rows.shape[1]))
+    blk = rows[r0:r0 + bm]
+    masks[:blk.shape[0]] = blk
+    return masks
+
+
 def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
                 scope_mask: Optional[torch.Tensor], operands, r0: int, *,
                 k: int, bm: int, method: str):
@@ -74,9 +107,7 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
     transposed postings; rows past V have all-zero masks.  ``bm`` is a
     multiple of the row tile: one row block, or a group of them."""
     v = pidx.vocab_size
-    masks = rows.new_zeros((bm, rows.shape[1]))
-    blk = rows[r0:r0 + bm]
-    masks[:blk.shape[0]] = blk
+    masks = _row_masks(rows, r0, bm)
     if scope_mask is not None:
         masks &= scope_mask[None, :]
     if method == "pallas":
@@ -93,11 +124,153 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
     return chunked_top_k(counts, k)
 
 
+def _edge_slots(run_w: torch.Tensor, run_i: torch.Tensor):
+    """(src, dst, weight, valid) edge slots of (V, k) top-k weights and
+    ids: slot ``i*k + j`` is term ``i``'s j-th neighbor; zero and negative
+    weights are invalid (dst -1, weight 0)."""
+    v, k = run_w.shape
+    valid = run_w > 0
+    return (torch.arange(v, dtype=torch.int32,
+                         device=run_w.device).repeat_interleave(k),
+            torch.where(valid, run_i, -1).reshape(-1),
+            torch.where(valid, run_w, 0).reshape(-1),
+            valid.reshape(-1))
+
+
+def _approx_block_topk(pidx: PackedIndex, rows: torch.Tensor, operands,
+                       r0: int, cand: np.ndarray, rows_pos: np.ndarray, *,
+                       k: int, bm: int, method: str):
+    """Top-k neighbors of terms ``[r0, r0 + bm)`` over their LSH candidate
+    columns only: (weights, global ids), both (bm, k) int32.
+
+    ``cand`` (C,) holds the sorted global candidate ids, -1 padded;
+    ``rows_pos`` (bm,) each row's own column in it (C when absent).  The
+    candidates gather into a (W, C) sub-index whose pad columns are zero,
+    so a pad column counts 0 and never emits an edge; under ``"gemm"``
+    the dense operand's term-major rows are gathered, so the doc axis
+    stays contiguous.  The count-method registry runs on the sub-problem
+    unchanged."""
+    dev = pidx.device
+    masks = _row_masks(rows, r0, bm)
+    cand_t = torch.from_numpy(cand).to(dev)
+    pad = cand_t < 0
+    safe = cand_t.clamp(min=0).to(torch.int64)
+    sub_packed = pidx.packed.index_select(1, safe)
+    sub_packed[:, pad] = 0
+    sub_df = torch.where(pad, 0, pidx.doc_freq.index_select(0, safe))
+    sub_index = PackedIndex(sub_packed, sub_df, pidx.n_docs)
+    sub_ops = {}
+    if "x_dense" in operands:
+        x_t = operands["x_dense"].t().index_select(0, safe)     # (C, D)
+        x_t[pad] = 0
+        sub_ops["x_dense"] = x_t.t()
+    counts = get_count_method(method).fn(sub_index, masks, sub_ops)
+    cols = torch.arange(len(cand), device=dev)
+    counts = torch.where(
+        cols[None, :] == torch.from_numpy(rows_pos).to(dev)[:, None], -1,
+        counts)
+    return gathered_top_k(counts, cand_t, k)
+
+
+def _approx_sweep(pidx: PackedIndex, rows: torch.Tensor, operands,
+                  per_block: List[Optional[np.ndarray]], *, k: int, bm: int,
+                  method: str):
+    """The row-block loop of ``mode="approx"``: each block with
+    candidates is counted against them (:func:`_approx_block_topk`), a
+    block without any is skipped with no device work.  Returns the (V, k)
+    weights and ids and the tile units counted."""
+    v, dev = pidx.vocab_size, pidx.device
+    tiles_counted = 0
+    ws, ids = [], []
+    for bi, cols in enumerate(per_block):
+        if cols is None:
+            ws.append(torch.full((bm, k), -1, dtype=torch.int32, device=dev))
+            ids.append(torch.zeros((bm, k), dtype=torch.int32, device=dev))
+            continue
+        cand = pad_candidates(cols, v)                    # (C,) -1-padded
+        tiles_counted += len(cand) // TILE_QUANTUM
+        r0 = bi * bm
+        terms = np.arange(r0, r0 + bm, dtype=np.int64)
+        pos = np.minimum(np.searchsorted(cols, np.clip(terms, 0, v - 1)),
+                         len(cols) - 1)
+        present = (cols[pos] == terms) & (terms < v)
+        rows_pos = np.where(present, pos, len(cand)).astype(np.int64)
+        w_b, i_b = _approx_block_topk(pidx, rows, operands, r0, cand,
+                                      rows_pos, k=k, bm=bm, method=method)
+        ws.append(w_b)
+        ids.append(i_b)
+    return torch.cat(ws)[:v], torch.cat(ids)[:v], tiles_counted
+
+
+def _materialize_approx(index, ctx, *, k: int, method: str, row_tile: int,
+                        threshold: float, num_perm: int, sketch_seed: int,
+                        use_cache: bool) -> ApproxCoocNetwork:
+    """The ``mode="approx"`` sweep: signatures -> banding -> candidate
+    tiles -> exact counts on the candidates only, with the work counted
+    in (row_tile, TILE_QUANTUM) tile units against the exact sweep's."""
+    pidx = ctx.index if ctx is not None else index
+    v, w = pidx.vocab_size, pidx.n_words
+    bm = min(row_tile, _round_up(v, 8))
+
+    cache_key = None
+    if ctx is not None and use_cache:
+        cache_key = ("materialize", "approx", k, method, bm,
+                     float(threshold), int(num_perm), int(sketch_seed))
+        hit = ctx.cached_artifact(cache_key, version=0)
+        if hit is not None:
+            return hit
+
+    bands, rows_per_band = lsh_params(threshold, num_perm)
+    if ctx is not None:
+        sigs_dev = ctx.term_signatures(num_perm=num_perm, seed=sketch_seed)
+    else:
+        sigs_dev = minhash_signatures(pidx.packed,
+                                      *hash_coefficients(num_perm,
+                                                         sketch_seed))
+    sigs = to_uint32(sigs_dev)
+    active = pidx.doc_freq.cpu().numpy() > 0
+    per_block, n_pairs = candidate_columns(sigs, b=bands, r=rows_per_band,
+                                           active=active, row_tile=bm)
+
+    # candidate tiles re-gather columns per block: "gemm" gathers rows of
+    # the dense operand, every other method reads the gathered postings
+    operands = {}
+    if "x_dense" in get_count_method(method).needs:
+        operands["x_dense"] = (ctx.x_dense() if ctx is not None
+                               else dense_operand(pidx))
+    rows = (ctx.packed_t_pad()[:v, :w] if ctx is not None
+            else pidx.packed.T)
+    run_w, run_i, tiles_counted = _approx_sweep(
+        pidx, rows, operands, per_block, k=k, bm=bm, method=method)
+    src, dst, weight, valid = _edge_slots(run_w, run_i)
+
+    n_stripes = _round_up(v, TILE_QUANTUM) // TILE_QUANTUM
+    n_blocks = _round_up(v, bm) // bm
+    recall = estimate_recall(sigs, src.cpu().numpy(), dst.cpu().numpy(),
+                             valid.cpu().numpy(), b=bands, r=rows_per_band)
+    net = ApproxCoocNetwork(
+        src, dst, weight, valid,
+        recall_estimate=recall,
+        stats=ApproxStats(tiles_counted=int(tiles_counted),
+                          tiles_total=int(n_blocks * n_stripes),
+                          candidate_pairs=int(n_pairs),
+                          num_perm=int(num_perm),
+                          threshold=float(threshold),
+                          bands=int(bands),
+                          rows_per_band=int(rows_per_band)),
+    )
+    if cache_key is not None:
+        ctx.store_artifact(cache_key, net)
+    return net
+
+
 def materialize(index, *, k: int = 8, method: str = "gemm",
                 scope: Optional[str] = None, scope_mask=None,
                 row_tile: int = 128, use_cache: bool = True, mesh=None,
-                shard_strategy: str = "auto",
-                mode: str = "exact") -> CoocNetwork:
+                shard_strategy: str = "auto", mode: str = "exact",
+                threshold: float = DEFAULT_THRESHOLD,
+                num_perm: int = DEFAULT_NUM_PERM,
+                sketch_seed: int = 0) -> CoocNetwork:
     """Materialize the corpus co-occurrence network, top-``k`` per term.
 
     index: a PackedIndex, or a QueryContext (cached artifacts + result
@@ -118,6 +291,17 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     int32 counts and the group's (GROUP * row_tile, D) int8 masks (at the
     CSL scale, GROUP = 4 and row_tile = 128: 134 MB and 203 MB, and two
     int32 bit intermediates of 811 MB each while the masks are unpacked).
+
+    mode="approx" (``threshold=``, ``num_perm=``, ``sketch_seed=``):
+    sketch-pruned materialization (:mod:`repro_torch.core.sketch`).  Per-term
+    MinHash signatures (``num_perm`` permutations) feed LSH banding at the
+    Jaccard ``threshold``; each row block is counted exactly against only
+    its candidate columns, and blocks with none are skipped.  Returns an
+    :class:`~repro_torch.core.sketch.ApproxCoocNetwork`: the same edge
+    slots plus ``recall_estimate`` and ``stats``.  Scoped materialization
+    stays exact-only (a scope rewrites every filter bitmap, so the live
+    signatures would estimate the wrong Jaccard); ``scope="all-time"``
+    re-sketches the combined live and cold index.
     """
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -137,7 +321,19 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     if mode not in ("exact", "approx"):
         raise ValueError(f"mode must be 'exact' or 'approx', got {mode!r}")
     if mode == "approx":
-        raise not_ported("approximate materialization (mode='approx')")
+        if scope_mask is not None or (scope is not None
+                                      and scope != "all-time"):
+            raise ValueError(
+                "mode='approx' does not support scoped materialization: "
+                "a scope rewrites every filter bitmap, so the live "
+                "signatures would estimate the wrong Jaccard — "
+                "materialize the scope exactly, or sketch a dedicated "
+                "index holding only the scoped documents")
+        if shard_strategy == "rows":
+            raise ValueError(
+                "mode='approx' prunes per row block, so the whole-sweep "
+                "shard_strategy='rows' launch does not apply; use "
+                "'auto'/'cols' (the sharded candidate merge)")
     if mesh is not None or shard_strategy != "auto":
         raise not_ported("sharded materialization (mesh=, shard_strategy=)")
     if scope == "all-time":
@@ -146,17 +342,26 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
         else:
             # a live ingest moves the epoch, a new spill the version; a
             # hit builds no stacked index
-            key = ("materialize", "all-time", k, method, row_tile)
+            key = ("materialize", "all-time", k, method, row_tile, mode,
+                   float(threshold), int(num_perm), int(sketch_seed))
             ver = ctx.cold_version()
             if use_cache:
                 hit = ctx.cached_artifact(key, ver)
                 if hit is not None:
                     return hit
             net = materialize(ctx.all_time_index(), k=k, method=method,
-                              row_tile=row_tile)
+                              row_tile=row_tile, mode=mode,
+                              threshold=threshold, num_perm=num_perm,
+                              sketch_seed=sketch_seed)
             if use_cache:
                 ctx.store_artifact(key, net, ver)
             return net
+    if mode == "approx":
+        return _materialize_approx(index, ctx, k=k, method=method,
+                                   row_tile=row_tile, threshold=threshold,
+                                   num_perm=num_perm,
+                                   sketch_seed=sketch_seed,
+                                   use_cache=use_cache)
 
     pidx = ctx.index if ctx is not None else index
     v, w = pidx.vocab_size, pidx.n_words
@@ -206,14 +411,7 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
         ids.append(i_b)
     run_w = torch.cat(ws)[:v]                                   # (V, k)
     run_i = torch.cat(ids)[:v].to(torch.int32)
-    valid = run_w > 0
-    net = CoocNetwork(
-        src=torch.arange(v, dtype=torch.int32,
-                         device=run_w.device).repeat_interleave(k),
-        dst=torch.where(valid, run_i, -1).reshape(-1),
-        weight=torch.where(valid, run_w, 0).reshape(-1),
-        valid=valid.reshape(-1),
-    )
+    net = CoocNetwork(*_edge_slots(run_w, run_i))
     if cache_key is not None:
         ctx.store_artifact(cache_key, net, cache_ver)
     return net

@@ -11,10 +11,14 @@ epoch —
 * ``packed_t_pad()`` the transposed postings padded to V % 8 == 0 and
   W % 128 == 0 (the reference's fused level-step operand; here the mask
   rows of materialization), padded once per epoch;
+* ``term_signatures()`` the per-term MinHash signatures of the approximate
+  sweep (:mod:`repro_torch.core.sketch`), hashed one ingest block at a
+  time and min-merged;
 
 plus named document scopes (``(W,)`` bitmaps ANDed into the seed filters),
 the all-ones ``full_mask`` (the unscoped scope operand), a generic
 epoch-checked artifact cache, and ingest with a host-side capacity check.
+:mod:`repro_torch.core.snapshot` saves and restores the whole state.
 
 **Sliding window.**  With ``window=N`` the context stops growing and
 manages doc slots as a ring: each ingest batch is a block of consecutive
@@ -117,6 +121,14 @@ class QueryContext:
         self._scope_dev: Dict[str, Tuple[int, torch.Tensor]] = {}
         self._full_mask: Optional[torch.Tensor] = None
         self.evicted_docs_total = 0    # monitoring: docs retired by the ring
+        # MinHash sketch state (core.sketch): per (num_perm, seed), the
+        # live blocks' signatures as (block_array, sig) pairs matched by
+        # identity, so term_signatures hashes only blocks it has not seen
+        # (a live block's postings bits never change)
+        self._sketch_blocks: Dict[Tuple[int, int], list] = {}
+        # the reference's dense dtype, carried through snapshots; the
+        # port's x_dense is int8 whatever it names
+        self._dtype = "bfloat16"
         if window is not None:
             if n0 > int(window):
                 raise ValueError(
@@ -392,6 +404,48 @@ class QueryContext:
         return self._artifact("packed_t_pad",
                               lambda: pad_transposed(self._index.packed))
 
+    def term_signatures(self, *, num_perm: int = 128,
+                        seed: int = 0) -> torch.Tensor:
+        """Per-term MinHash signatures (V, num_perm), int32 uint32 patterns,
+        over the live postings (:mod:`repro_torch.core.sketch`), cached per
+        epoch through :meth:`cached_artifact`.
+
+        The rebuild is incremental: each live ingest block is hashed once
+        (keyed on block identity: a live block's bits never change) and
+        the served signature is an unsigned min over the live blocks, so
+        an ingest hashes only the new block and an eviction drops the
+        evicted block's part.  Vocabulary growth pads old block signatures
+        with ``SIG_EMPTY``; a shrink slices them."""
+        from repro_torch.core import sketch
+        cfg = (int(num_perm), int(seed))
+        key = ("minhash",) + cfg
+        hit = self.cached_artifact(key, version=0)
+        if hit is not None:
+            return hit
+        v = self.vocab_size
+        a, b = sketch.hash_coefficients(num_perm, seed)
+        prev = {id(e[0]): e for e in self._sketch_blocks.get(cfg, [])}
+        ents = []
+        for blk in self._blocks:
+            ent = prev.get(id(blk))
+            if ent is None or ent[0] is not blk:
+                ent = (blk, sketch.block_signatures(self._index.packed, blk,
+                                                    a, b))
+            elif ent[1].shape[0] != v:
+                sig_b = ent[1]
+                if sig_b.shape[0] > v:
+                    sig_b = sig_b[:v]
+                else:
+                    sig_b = torch.cat([sig_b, sig_b.new_full(
+                        (v - sig_b.shape[0], sig_b.shape[1]), -1)])
+                ent = (blk, sig_b)
+            ents.append(ent)
+        self._sketch_blocks[cfg] = ents
+        sig = sketch.merge_signatures([e[1] for e in ents], v, int(num_perm),
+                                      device=self.device)
+        self.store_artifact(key, sig)
+        return sig
+
     def cached_artifact(self, key: Tuple, version: int = 0):
         """Epoch- and version-checked lookup (None on a miss)."""
         ent = self._artifact_cache.get(key)
@@ -537,47 +591,6 @@ class QueryContext:
                            on_overflow=on_overflow, scope=scope)
 
 
-def context_from_state(arrays: Dict[str, np.ndarray], meta: dict, *,
-                       device="cuda", cold_store=None) -> QueryContext:
-    """A port context equivalent to the reference context serialised by
-    ``repro.core.snapshot.context_state``: ``arrays`` holds ``packed``
-    (uint32), ``doc_freq``, ``block_NNNN``, ``scope_NNNN`` and the cold
-    payloads ``cold_NNNN``; ``meta`` holds ``n_docs``, ``epoch``, the ring
-    (``ring_tail``, ``window``, ``stranded``, ``evicted_docs_total``),
-    ``scopes``, ``n_blocks`` and the cold tier's ``cold_seq`` and
-    ``cold_keys``.  The uint32 bitmaps are viewed as int32.
 
-    ``cold_store`` receives the state's cold payloads (a fresh dict when
-    omitted and the state has any); a key whose payload is not among
-    ``arrays`` must already be in ``cold_store`` (say a directory the
-    reference spilled to).  Sketch state is not ported and is ignored."""
-    dev = resolve_device(device)
-    index = PackedIndex(
-        from_uint32(arrays["packed"], dev),
-        torch.from_numpy(np.array(arrays["doc_freq"], np.int32)).to(dev),
-        int(meta["n_docs"]))
-    ctx = QueryContext(index, device=dev)
-    ctx._blocks = deque(np.asarray(arrays[f"block_{i:04d}"], np.int64)
-                        for i in range(int(meta["n_blocks"])))
-    ctx._ring_tail = int(meta["ring_tail"])
-    ctx._window = None if meta["window"] is None else int(meta["window"])
-    ctx._stranded = int(meta["stranded"])
-    ctx.evicted_docs_total = int(meta["evicted_docs_total"])
-    ctx.epoch = int(meta["epoch"])
-    ctx._scopes = {name: np.ascontiguousarray(arrays[f"scope_{i:04d}"],
-                                              np.uint32)
-                   for i, name in enumerate(meta["scopes"])}
-    ctx._scope_ver = {k: int(v) for k, v in meta.get("scope_ver", {}).items()}
-    cold_keys = meta.get("cold_keys", [])
-    if cold_keys and cold_store is None:
-        cold_store = {}
-    for i, key in enumerate(cold_keys):
-        blob = arrays.get(f"cold_{i:04d}")
-        if blob is not None:
-            cold_store[key] = np.asarray(blob).tobytes()
-        elif key not in cold_store:
-            raise KeyError(f"cold block {key!r} is neither in the state's "
-                           "arrays nor in cold_store")
-    ctx._cold = cold_store
-    ctx._cold_seq = int(meta.get("cold_seq", 0))
-    return ctx
+# the restore lives with the snapshot format; re-exported for its callers
+from repro_torch.core.snapshot import context_from_state  # noqa: E402,F401

@@ -85,6 +85,7 @@ def smoke(monkeypatch):
     for name, value in [("CSL_DOCS", 1500), ("CSL_TERMS", 256),
                         ("MID_DOCS", 1024), ("MID_TERMS", 128),
                         ("N_QUERIES", 16), ("DLRM_VOCAB", 1000),
+                        ("SHA_PROBE_BYTES", 1 << 20),
                         ("SERVE_P99", 16), ("SERVE_BULK", 96),
                         ("RETRIEVAL_CAND", 300), ("N_P99_BATCHES", 5),
                         ("DECODE_HEADS", (8, 2, 16)),
@@ -100,11 +101,14 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     smoke.phase_strings(dev)
     ctx, hidx, seeds, launches = smoke.phase_csl(dev)
     assert launches == {"level_step": 6, "postings_counts": 6}
-    smoke.phase_materialize(dev, ctx, hidx, launches)
+    exact, exact_s = smoke.phase_materialize(dev, ctx, hidx, launches)
     # 256 terms: one launch of GROUP = 4 row blocks of 128 (two of them
     # past V), on the TMA path
     assert launches["cooccur_counts"] == 1
     assert ctx.unpack_count == 1
+    assert exact.max_edges == 256 * 16 and exact_s > 0
+    smoke.phase_approx(dev, ctx, hidx, exact, exact_s)
+    assert ctx.unpack_count == 1        # "gemm" approx reuses x_dense
     kernels = smoke.phase_kernels(dev, ctx, seeds, launches)
     assert [k["name"] for k in kernels] == ["postings_counts", "level_step",
                                             "cooccur_counts"]
@@ -124,6 +128,14 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     # views and the three shapes whose rows are not whole 16-byte words
     assert 'dot_interaction_cases={"bulk": 11, "plain": 5}' in out
     assert "[materialize] identical=True rows_checked=16" in out
+    # the quickstart snapshot, and the approximate CSL sweep both ways
+    assert "[strings] snapshot_blobs=" in out
+    assert "loaded_equal=True approx_equal_cpu=True" in out
+    assert "[approx] method=pallas k=16 " in out
+    assert "[approx] method=gemm k=16 " in out
+    assert "[approx] identical=True sig_s=" in out
+    assert "[approx] kernel=postings_counts row_block=" in out
+    assert "signatures_checked=" in out
     assert "materialize_methods=4 identical=True" in out
     assert "kernel=postings_counts frontier=level-1 tile_rows=4 " in out
     assert "compaction_ms=" in out
@@ -139,15 +151,19 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
 def test_chip_smoke_stream_phase_rehearses_on_the_cpu(smoke, monkeypatch,
                                                      capsys):
     """A window of 300 docs (capacity 320), filled in blocks of 64, then
-    3 evicting rounds: the first writes slots 300..319 and wraps to 0."""
+    3 evicting rounds: the first writes slots 300..319 and wraps to 0.
+    Then the snapshot phase saves and restores that ring."""
     for name, value in [("STREAM_WINDOW", 300), ("STREAM_BLOCK", 64),
                         ("STREAM_ROUNDS", 3)]:
         monkeypatch.setattr(smoke, name, value)
-    launches = smoke.phase_stream(torch.device("cpu"))
+    launches, state = smoke.phase_stream(torch.device("cpu"))
     # 3 post-ingest batches and the oracle batch at depth 2 through kernel
     # 2, the oracle batch through kernel 1, one all-time sweep of 256 terms
     assert launches == {"postings_counts": 2, "level_step": 8,
                         "cooccur_counts": 1}
+    assert state["ctx"].scope_names() == ("rounds",)
+    smoke.phase_snapshot(torch.device("cpu"), state)
+    assert state == {}
     out = capsys.readouterr().out
     assert "[stream] window=300 capacity=320 words=10 " in out
     assert "fill_ingests=5 " in out
@@ -160,6 +176,11 @@ def test_chip_smoke_stream_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     assert "all_time_words=16 all_time_slots=512 " in out
     assert "gemm_oracle=True" in out
     assert "[stream] fresh_docs=492 identical=True rows_checked=16" in out
+    # the ring after the rounds: 300 live docs in 5 blocks, 3 cold blocks
+    assert "[snapshot] live_blocks=5 cold_blocks=3 scopes=rounds " in out
+    assert "[snapshot] restored_equal=True rehashed_blocks=0 " in out
+    assert "fsync_s=" in out and "host_sha256_gb_per_s=" in out
+    assert "next_ingest_identical=True" in out
 
 
 def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,

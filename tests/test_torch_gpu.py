@@ -261,6 +261,90 @@ def test_materialize_methods_agree_on_the_card(cuda):
                 assert torch.equal(a, b), (method, scope)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [64, 256, 4096])
+def test_postings_kernel_on_approx_operands(cuda, c):
+    """Kernel 1 on the approximate sweep's operands: 128 postings rows
+    (dense head rows and sparse tail rows) against C gathered candidate
+    columns, the pad columns zeroed."""
+    from repro_torch.core import sketch
+    v = 8192
+    ctx = QueryContext.from_docs(synthetic_csl(20_000, v, seed=6), v,
+                                 device=cuda)
+    df = ctx.index.doc_freq.cpu().numpy()
+    order = np.argsort(-df, kind="stable")
+    live = order[df[order] > 0]
+    rows = torch.from_numpy(np.concatenate([live[:64], live[-64:]]))
+    masks = ctx.packed_t_pad()[rows.to(cuda), :ctx.index.n_words]
+    rng = np.random.default_rng(c)
+    cand = sketch.pad_candidates(
+        np.sort(rng.choice(v, c * 3 // 4, replace=False)), v)
+    cand = torch.from_numpy(cand).to(cuda)
+    sub = ctx.index.packed.index_select(1, cand.clamp(min=0))
+    sub[:, cand < 0] = 0
+    assert torch.equal(ops.postings_counts(masks, sub),
+                       ref.postings_counts_ref(masks, sub))
+
+
+@pytest.mark.gpu
+def test_approx_methods_agree_on_the_card_and_with_the_cpu(cuda):
+    """mode="approx" through kernel 1 ("pallas") equals "gemm"
+    (``torch._int_mm``) on the card and the port's plain versions on the
+    CPU, slot for slot, with the same estimate and stats."""
+    from repro_torch.core import materialize
+    docs = synthetic_csl(6000, 2048, seed=7)
+    nets = {}
+    for dev in (cuda, torch.device("cpu")):
+        ctx = QueryContext.from_docs(docs, 2048, device=dev)
+        for method in ("pallas", "gemm"):
+            before = ops.LAUNCHES["postings_counts"]
+            nets[dev.type, method] = materialize(ctx, k=8, mode="approx",
+                                                 method=method)
+            if (dev.type, method) == ("cuda", "pallas"):
+                assert ops.LAUNCHES["postings_counts"] > before
+    want = nets["cpu", "pallas"]
+    assert want.num_edges() > 0
+    for key, net in nets.items():
+        for a, b in zip(net[:4], want[:4]):
+            assert torch.equal(a.cpu(), b), key
+        assert (net.recall_estimate, net.stats) == (want.recall_estimate,
+                                                    want.stats), key
+
+
+@pytest.mark.gpu
+def test_snapshot_round_trip_on_the_card(cuda, tmp_path):
+    """A windowed index with a cold tier and sketches, saved on the card
+    and loaded back onto the card and onto the CPU: the same bits, the
+    same answers, no block rehashed."""
+    from repro_torch.api import CoocIndex
+    from repro_torch.core import sketch
+    texts = [" ".join(f"w{t}" for t in d)
+             for d in synthetic_csl(900, 300, seed=8)]
+    idx = CoocIndex(device=cuda, window=400, cold_store={}, method="fused")
+    for lo in range(0, 900, 150):
+        idx.add_documents(texts[lo:lo + 150], timestamp=float(lo))
+    idx.ctx.term_signatures(num_perm=32)
+    idx.save(str(tmp_path / "snap"))
+    on_card = CoocIndex.load(str(tmp_path / "snap"), device=cuda)
+    on_cpu = CoocIndex.load(str(tmp_path / "snap"), device="cpu")
+    assert torch.equal(on_card.ctx.index.packed, idx.ctx.index.packed)
+    hashed = sketch.block_signatures
+    try:
+        sketch.block_signatures = None      # a rehash would raise
+        assert torch.equal(on_card.ctx.term_signatures(num_perm=32),
+                           idx.ctx.term_signatures(num_perm=32))
+    finally:
+        sketch.block_signatures = hashed
+    seed = idx.lexicon.id_to_term[int(torch.argmax(idx.ctx.index.doc_freq))]
+    for other in (on_card, on_cpu):
+        for method in ("fused", "pallas", "gemm"):
+            assert (other.network([seed], method=method)
+                    == idx.network([seed], method=method)), method
+        for kw in ({}, {"scope": "all-time"}, {"mode": "approx"}):
+            assert other.full_network(k=4, **kw) == idx.full_network(
+                k=4, **kw), kw
+
+
 def _normal(rng, shape, device, dtype):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
                             ).to(device=device, dtype=dtype)

@@ -215,12 +215,13 @@ def test_argument_checks_and_unported_modes():
                      "not both"),
                     ({"shard_strategy": "diag"}, "shard_strategy"),
                     ({"mode": "bogus"}, "mode must be"),
+                    ({"mode": "approx", "shard_strategy": "rows"},
+                     "shard_strategy='rows'"),
                     ({"scope_mask": np.zeros(3, np.uint32)}, "shape")]:
         with pytest.raises(ValueError, match=err):
             materialize(ctx, **kw)
     with pytest.raises(ValueError, match="QueryContext"):
         materialize(ctx.index, scope="a")
-    for kw in ({"mode": "approx"}, {"mesh": object()},
-               {"shard_strategy": "rows"}):
+    for kw in ({"mesh": object()}, {"shard_strategy": "rows"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             materialize(ctx, **kw)

@@ -454,15 +454,18 @@ class TestRingStateMachine:
     boundaries, and shrink), retire_oldest_block and tag_scope run on a
     reference and a port context with cold stores; after every step the
     two must agree on the bits, ``doc_freq``, the ring state, the scopes,
-    the cold payloads, the public attributes and one query per method."""
+    the cold payloads, the public attributes, the MinHash signatures and
+    one query per method.  At one random step the port context is saved
+    and replaced by its restored copy, which must track on."""
 
     @pytest.mark.parametrize("seed", range(6))
-    def test_random_interleavings_track_reference(self, seed):
+    def test_random_interleavings_track_reference(self, seed, tmp_path):
         rng = np.random.default_rng(1000 + seed)
         vocab = int(rng.integers(4, 17))
         w0 = int(rng.integers(8, 41))
         t_ctx, j_ctx = _pair([], vocab, window=w0, cold=True)
         _same_context(t_ctx, j_ctx)
+        restore_at = int(rng.integers(0, 8))
         for step in range(8):
             op = int(rng.integers(0, 6))
             if op <= 1 or not j_ctx.n_blocks:
@@ -485,7 +488,14 @@ class TestRingStateMachine:
                     1, len(live) + 1)), replace=False).tolist())
                 for ctx in (t_ctx, j_ctx):
                     ctx.tag_scope("c", pick)
+            if step == restore_at:
+                T.save_context(t_ctx, str(tmp_path / "snap"))
+                t_ctx = T.load_context(str(tmp_path / "snap"), device="cpu",
+                                       cold_store={})
             _same_context(t_ctx, j_ctx)
+            np.testing.assert_array_equal(
+                to_uint32(t_ctx.term_signatures(num_perm=16)),
+                np.asarray(j_ctx.term_signatures(num_perm=16)))
             seed_t = int(np.argmax(np.asarray(j_ctx.index.doc_freq)))
             for method in METHODS:
                 _same_query(t_ctx, j_ctx, seed_t, method)
