@@ -7,7 +7,10 @@ is compiled, so a build takes seconds.  Libraries go to ``kernels/_build``
 (``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
 an unchanged one is reused.  Nothing is built at import: the first launch
 of a kernel builds it, or a caller builds all of them up front with
-:func:`build` (one ``nvcc`` per source, all started together).
+:func:`build` (one ``nvcc`` per source, all started together).  Threads of
+one process that first launch the same kernel together (two serving lanes)
+build and load it once: :func:`library` holds a lock, and each build
+writes a temporary file named by its process and thread.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -30,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -66,7 +71,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -89,13 +95,18 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed;
+    one build and one handle however many threads ask at once."""
     lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libs[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib
 
 
 def check(rc: int, what: str) -> None:

@@ -1,8 +1,33 @@
-"""Serving: the plan-aware micro-batching engine (``cooc_engine``)."""
+"""Serving: the plan-aware micro-batching engine (``cooc_engine``) and the
+asyncio multi-tenant front end over it (``server``: admission control,
+deadline-aware micro-batching, tenancy, metrics, warm start from a
+snapshot).  Mirrors ``repro.serve`` less the language model's
+``DecodeServer`` and ``Request``, which are not ported."""
+from repro_torch.serve.admission import (  # noqa: F401
+    AdmissionController,
+    AdmissionDecision,
+    AdmissionPolicy,
+    StepTimeModel,
+    estimate_wait_ms,
+)
 from repro_torch.serve.cooc_engine import (  # noqa: F401
     CoocEngine,
     CoocFuture,
+    CoocRequest,
     EngineClosedError,
     EngineStats,
 )
-from repro_torch.serve.metrics import percentile_ms  # noqa: F401
+from repro_torch.serve.metrics import (  # noqa: F401
+    LatencyHistogram,
+    MetricsSnapshot,
+    QuantileSummary,
+    ServerMetrics,
+    TenantCounters,
+    percentile_ms,
+)
+from repro_torch.serve.server import (  # noqa: F401
+    CoocServer,
+    ServeResponse,
+    ServerConfig,
+    TenantConfig,
+)

@@ -152,9 +152,16 @@ def test_chip_smoke_stream_phase_rehearses_on_the_cpu(smoke, monkeypatch,
                                                      capsys):
     """A window of 300 docs (capacity 320), filled in blocks of 64, then
     3 evicting rounds: the first writes slots 300..319 and wraps to 0.
-    Then the snapshot phase saves and restores that ring."""
+    Then the snapshot phase saves that ring and the serve phase's warm
+    start restores it, and the server replays a short trace on it.  The
+    trace keeps the card run's burst, queue bound and hostile plans; its
+    deadlines and wait budget are a minute here, since a CPU shared with
+    other test workers times nothing the gate could hold."""
     for name, value in [("STREAM_WINDOW", 300), ("STREAM_BLOCK", 64),
-                        ("STREAM_ROUNDS", 3)]:
+                        ("STREAM_ROUNDS", 3), ("SERVE_STEADY", 120),
+                        ("SERVE_CAPACITY_BATCHES", 2),
+                        ("SERVE_DEADLINE_MS", 60_000.0),
+                        ("SERVE_WAIT_MS", 60_000.0)]:
         monkeypatch.setattr(smoke, name, value)
     launches, state = smoke.phase_stream(torch.device("cpu"))
     # 3 post-ingest batches and the oracle batch at depth 2 through kernel
@@ -162,8 +169,13 @@ def test_chip_smoke_stream_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     assert launches == {"postings_counts": 2, "level_step": 8,
                         "cooccur_counts": 1}
     assert state["ctx"].scope_names() == ("rounds",)
-    smoke.phase_snapshot(torch.device("cpu"), state)
+    serve = smoke.phase_snapshot(torch.device("cpu"), state)
     assert state == {}
+    assert set(serve) == {"server", "gamma_docs"}
+    assert serve["server"].ctx.scope_names() == ("rounds",)
+    assert sorted(serve["server"].tenants) == ["alpha", "beta", "gamma"]
+    smoke.phase_serve(torch.device("cpu"), serve)
+    assert serve == {}
     out = capsys.readouterr().out
     assert "[stream] window=300 capacity=320 words=10 " in out
     assert "fill_ingests=5 " in out
@@ -181,6 +193,20 @@ def test_chip_smoke_stream_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     assert "[snapshot] restored_equal=True rehashed_blocks=0 " in out
     assert "fsync_s=" in out and "host_sha256_gb_per_s=" in out
     assert "next_ingest_identical=True" in out
+    # the warm start, before the snapshot phase's checks ran on it
+    assert out.index("[serve] warm_start_s=") < out.index(
+        "[snapshot] restored_equal=True")
+    assert ("live_blocks=5 cold_blocks=3 scopes=rounds state_equal=True "
+            "tenants=alpha,beta,gamma") in out
+    assert "[serve] capacity_qps=" in out and "cold_first_step_ms=" in out
+    assert 'checked_before=[64, 8]' in out and 'checked_after=[64, 8]' in out
+    # 120 steady + 256 burst + 6 hostile requests
+    assert "[serve] offered=382 " in out
+    assert '"burst:shed:queue_full": ' in out
+    assert "errors=0 " in out and "misses=0 " in out
+    assert "[serve] ingests=4 " in out
+    assert "profile=fused_batch device_busy_ms=not-measured" in out
+    assert "[serve] acceptance=True " in out
 
 
 def test_chip_smoke_dlrm_and_decode_phases_rehearse_on_the_cpu(smoke,
