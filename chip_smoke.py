@@ -11,8 +11,10 @@ paper's query at the CSL scale (396,209 docs, 65,536 terms, depth 3, top-k
 ``CoocEngine`` with the two BFS kernel methods, materializes the whole
 CSL network (top-16 per term) exactly through the co-occurrence kernel and
 approximately through the postings kernel, checks the answers against the
-host oracle, saves a streaming CSL ring on local disk and warm-starts the
-multi-tenant ``CoocServer`` from it, which serves an open-loop trace.
+host oracle, serves and materializes the same index on a term and a doc
+mesh of four shards of the card, saves a streaming CSL ring on local disk
+and warm-starts the multi-tenant ``CoocServer`` from it, which serves an
+open-loop trace.
 Then it serves dlrm-rm2 at full size
 through the dot-interaction kernel and runs the flash-decode kernel at
 llama3-8b's decode cells.  Phases:
@@ -32,7 +34,13 @@ llama3-8b's decode cells.  Phases:
                   whole network and its statistics), then an ingest; the
                   index saved and loaded back answers like the live one,
                   its approx network equals the CPU's, and the snapshot's
-                  blobs match their manifest's sha256
+                  blobs match their manifest's sha256; then on a term
+                  and a doc mesh of MESH_SHARDS shards of the card: all
+                  four methods, queries and the whole network (both
+                  shard strategies) == the oracle, live and restored
+                  (``CoocIndex.load(mesh=)``), 8 requests through
+                  ``CoocServer.from_snapshot(mesh=)`` == a direct
+                  engine, and ``CoocIndex(devices=1)`` a one-shard mesh
   4. csl          the CSL-scale serving run, per BFS kernel method
   5. materialize  the whole CSL network, method "pallas" (the kernel, one
                   launch per GROUP row blocks, on its TMA path) and
@@ -50,8 +58,18 @@ llama3-8b's decode cells.  Phases:
                   frontiers of the first batch, kernel 1 with the work its
                   row tiles walk and its compaction launch's time; kernel
                   3 and ``torch._int_mm`` at 1, 2, 4 and 8 row blocks a
-                  launch); then the CSL context is freed
-  8. stream       the streaming tier at the stream_ingest cell: a window of
+                  launch)
+  8. mesh         the CSL index on a term and a doc mesh of MESH_SHARDS
+                  shards of the card, each answer == the unsharded one
+                  of this run: the 64 queries under "fused" and "pallas"
+                  (one launch a level per shard: kernel 2 on the term
+                  mesh's "fused", kernel 1 otherwise), the whole network
+                  ("rows" and "cols" on the term mesh, the doc split on
+                  the doc mesh; kernel 3 on its TMA path), the approx
+                  network and the signatures (term mesh); a profiled
+                  batch per mesh and method; then the CSL context is
+                  freed
+  9. stream       the streaming tier at the stream_ingest cell: a window of
                   396,209 CSL docs (capacity pinned at 396,224 slots)
                   filled in blocks of 4,096, then 8 rounds of 4,096 new
                   docs tagged "rounds", each evicting and spilling the
@@ -61,14 +79,14 @@ llama3-8b's decode cells.  Phases:
                   network (kernel 3 over the live and cold tiers stacked)
                   == that of a fresh context over all 428,977 docs; one
                   "gemm" rebuild timed
-  9. snapshot     the stream's ring (97 live blocks, 8 cold) sketched, its
+ 10. snapshot     the stream's ring (97 live blocks, 8 cold) sketched, its
                   all-time approx network built (kernel 1), saved to local
                   disk (about 6.8 GB) and loaded back on the card by the
                   serve phase's warm start: equal bits, doc_freq, ring,
                   scopes and cold payloads; no block rehashed; the same
                   "fused" batch and approx network; one more evicting
                   ingest leaves both identical
- 10. serve        ``CoocServer.from_snapshot`` of that directory serving
+ 11. serve        ``CoocServer.from_snapshot`` of that directory serving
                   three tenants: alpha pinned to "rounds" and beta
                   unscoped on the shared lane ("fused", kernel 2), gamma on
                   a dedicated 2^15-doc x 2^13-term context ("pallas",
@@ -82,13 +100,13 @@ llama3-8b's decode cells.  Phases:
                   1%); 64 served requests == a direct engine before and
                   after, 8 of gamma's == the host oracle; a never-seen
                   plan's first step; one full batch under the profiler
- 11. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
+ 12. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
                   against float64; kernel 4 and torch.bmm's full Gram
                   timed at each cell's interaction input, the kernels' own
                   device time (profiler) apart from the host time a call
- 12. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
+ 13. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
                   long_500k, ragged lengths (a 0 and a 1 among them) ==
                   the plain version; then timed at full lengths
 
@@ -97,7 +115,7 @@ two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
 imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 
-``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 11 alone, to
+``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
 compare kernel 4 between two trees on one card, and prints no result line.
 """
 from __future__ import annotations
@@ -132,6 +150,7 @@ APPROX_PARITY_COLS = (64, 256, 4096)
 N_SIGS_CHECKED = 64            # CSL signatures held against numpy
 SHA_PROBE_BYTES = 1 << 30      # bytes hashed to time the host's sha256
 N_ROWS_CHECKED = 16            # materialized CSL rows held against the oracle
+MESH_SHARDS = 4                # shards of the mesh phases, all on one card
 # the streaming tier at the reference's stream_ingest cell
 # (src/repro/configs/base.py COOC_SHAPES): a window of the CSL corpus,
 # 4,096 new docs an ingest, then a depth-2 query batch
@@ -688,6 +707,7 @@ def phase_strings(dev):
     say("strings", methods=4, edges=len(want), full_edges=len(want_full),
         oracle=True, ingest_visible=True, launches=json.dumps(launches))
     _strings_snapshot(dev)
+    _strings_mesh(dev, want, want_full)
 
 
 def _same_stats(a, b):
@@ -748,6 +768,93 @@ def _strings_snapshot(dev):
             approx_launches=approx_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _strings_mesh(dev, want, want_full):
+    """The quickstart corpus on a mesh of MESH_SHARDS shards of the one
+    card, both shard kinds: every method's query and whole network (both
+    shard strategies) == the host oracle; the index saved there and
+    restored onto the mesh (``CoocIndex.load``) answers alike, and the
+    server warm-started onto the mesh (``CoocServer.from_snapshot``)
+    serves 8 requests == a direct engine over an unsharded restore;
+    ``CoocIndex(devices=1)`` is a one-shard mesh."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.api import CoocIndex
+    from repro_torch.core import make_cooc_mesh
+    from repro_torch.kernels import ops
+
+    plan = dict(depth=2, topk=6, beam=8, q_batch=4)
+    tmp = tempfile.mkdtemp(prefix="cooc-mesh-")
+    served = 0
+    ops.reset_launches()
+    try:
+        for shard in ("terms", "docs"):
+            mesh = make_cooc_mesh(devices=[dev] * MESH_SHARDS, shard=shard)
+            idx = CoocIndex.from_texts(QUICKSTART, device=dev, mesh=mesh,
+                                       **plan)
+            path = os.path.join(tmp, shard)
+            idx.save(path)
+            loaded = CoocIndex.load(path, device=dev, mesh=mesh)
+            for method in ("gemm", "popcount", "pallas", "fused"):
+                for which, i in (("live", idx), ("loaded", loaded)):
+                    if i.network(["networks"], method=method) != want:
+                        raise AssertionError(f"quickstart on a {shard} mesh "
+                                             f"({which}, {method}) != oracle")
+                    for strategy in ("rows", "cols"):
+                        if i.full_network(k=4, method=method,
+                                          shard_strategy=strategy) \
+                                != want_full:
+                            raise AssertionError(
+                                f"quickstart network on a {shard} mesh "
+                                f"({which}, {method}, {strategy}) != oracle")
+            served += asyncio.run(_strings_served(dev, path, mesh))
+        one = CoocIndex.from_texts(
+            QUICKSTART, device=dev, **plan,
+            devices=1 if dev.type == "cuda" else [dev])
+        if one.mesh is None or one.mesh.size != 1 \
+                or one.network(["networks"]) != want:
+            raise AssertionError("CoocIndex(devices=1) is not a one-shard "
+                                 "mesh answering like the oracle")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {name: ops.LAUNCHES[name] for name in
+                ("postings_counts", "level_step", "cooccur_counts")}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched on a mesh: "
+                             f"{launches}")
+    say("strings", mesh_shards=MESH_SHARDS, mesh_kinds="terms,docs",
+        mesh_oracle=True, mesh_loaded_equal=True, mesh_served_equal=served,
+        one_shard_mesh=True, mesh_launches=json.dumps(launches))
+
+
+async def _strings_served(dev, path, mesh):
+    """8 requests through a server warm-started onto ``mesh`` == a direct
+    engine over the same snapshot restored on one device."""
+    from repro_torch.core import load_context
+    from repro_torch.serve import CoocEngine, CoocServer, TenantConfig
+    srv = CoocServer.from_snapshot(path, tenants=[TenantConfig("t")],
+                                   device=dev, mesh=mesh)
+    if srv.ctx.mesh != mesh:
+        raise AssertionError("the warm start dropped the mesh")
+    eng = CoocEngine(load_context(path, device=dev), device=dev, q_batch=4)
+    plan = dict(depth=2, topk=6, beam=8)
+    await srv.start()
+    try:
+        for i in range(8):
+            method = ("fused", "pallas")[i % 2]
+            r = await srv.submit("t", dict(seeds=[i], method=method, **plan),
+                                 deadline_ms=600_000.0)
+            want = eng.submit([i], method=method, **plan).result().network
+            if not (r.ok and all(np.array_equal(np.asarray(a), np.asarray(b))
+                                 for a, b in zip(r.result.network, want))):
+                raise AssertionError(f"meshed server request {i} ({method}) "
+                                     f"!= a direct engine: {r}")
+    finally:
+        await srv.stop()
+    return 8
 
 
 def phase_csl(dev):
@@ -1063,6 +1170,196 @@ def phase_approx(dev, ctx, hidx, exact, exact_s):
         approx_s=f"{secs['pallas']:.3f}", exact_s=f"{exact_s:.3f}",
         max_memory_allocated_gb=
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return net, secs["pallas"], sig_s
+
+
+def _host_slots(net):
+    """A network's four slot arrays, stacked on the host."""
+    return np.stack([np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                     .astype(np.int64) for a in net[:4]])
+
+
+def _mesh_queries(ctx, seeds, method):
+    """The CSL queries through a CoocEngine over ``ctx`` (one warm-up
+    query first): their networks stacked on the host, each batch's ms,
+    the seconds, and the launches of the run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import CoocEngine
+    eng = CoocEngine(ctx, device=ctx.device, depth=DEPTH, topk=TOPK,
+                     beam=BEAM, q_batch=Q_BATCH, method=method)
+    eng.query([seeds[0]])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    futs = [eng.submit([s]) for s in seeds]
+    batch_ms = []
+    t0 = time.perf_counter()
+    while eng.queue:
+        tb = time.perf_counter()
+        eng.step()
+        batch_ms.append((time.perf_counter() - tb) * 1e3)
+    secs = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    nets = np.stack([_host_slots(f.result().network) for f in futs])
+    for s in seeds[:Q_BATCH]:          # one more full batch, left queued
+        eng.submit([s])
+    return nets, batch_ms, secs, counts, eng
+
+
+def phase_mesh(dev, ctx, seeds, exact, exact_s, approx, approx_s,
+               sig_s_unsharded):
+    """The CSL index of phase csl on a mesh of MESH_SHARDS shards of the
+    one card, each answer held equal to the unsharded one of this run.
+    Term mesh: the 64 queries under "fused" (kernel 2 once a level per
+    shard) and "pallas" (kernel 1 per shard), the whole network under
+    "pallas" with shard_strategy "rows" and "cols" (kernel 3 per shard
+    or per row-block range), the approx network (kernel 1 per shard on
+    each candidate tile) and the MinHash signatures.  Doc mesh: the 64
+    queries under both methods (kernel 1 per shard) and the whole network
+    doc-split ("cols": kernel 3 per doc shard, partial counts summed).
+    The unsharded answers are kept on the host and the unsharded
+    context's dense artifacts dropped first, so the peak stays near
+    phase csl's.  Returns the launches of each kernel in the phase."""
+    import torch
+    from repro_torch.core import QueryContext, make_cooc_mesh, materialize
+    from repro_torch.core.distributed import shard_ranges
+    from repro_torch.core.materialize import GROUP
+    from repro_torch.core.sketch import DEFAULT_NUM_PERM
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    n = MESH_SHARDS
+    v = ctx.vocab_size
+    total = {"postings_counts": 0, "level_step": 0, "cooccur_counts": 0}
+    counters = {"fused": "level_step", "pallas": "postings_counts"}
+    want, base = {}, {}
+    for method in counters:
+        nets, ms, secs, _, eng = _mesh_queries(ctx, seeds, method)
+        want[method], base[method] = nets, (ms, secs)
+        say_profile("mesh", f"none_{method}_batch", eng.step)
+    want_net = _host_slots(exact)
+    want_approx = (_host_slots(approx), approx.stats, approx.recall_estimate)
+    want_sig = ctx.term_signatures(num_perm=DEFAULT_NUM_PERM).cpu()
+    ctx._cache.clear()                 # x_dense, packed_t_pad: about 29 GB
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def queries(mctx, kind, method, counter):
+        nets, ms, secs, counts, eng = _mesh_queries(mctx, seeds, method)
+        if not np.array_equal(nets, want[method]):
+            raise AssertionError(f"{kind} mesh queries ({method}) != "
+                                 "unsharded")
+        if counts[counter] != len(ms) * DEPTH * filled(mctx):
+            raise AssertionError(f"{kind} mesh {method}: {counts[counter]} "
+                                 f"{counter} launches, not {DEPTH} a level "
+                                 f"per shard over {len(ms)} batches")
+        for name in total:
+            total[name] += counts[name]
+        b_ms, b_secs = base[method]
+        say("mesh", mesh=kind, shards=n, method=method,
+            queries=len(seeds), batches=len(ms),
+            batch_p50_ms=f"{np.percentile(ms, 50):.3f}",
+            unsharded_batch_p50_ms=f"{np.percentile(b_ms, 50):.3f}",
+            qps=f"{len(seeds) / secs:.3f}",
+            unsharded_qps=f"{len(seeds) / b_secs:.3f}",
+            launches_per_batch_per_shard=f"{counts[counter] / len(ms) / n:.2f}",
+            launches=json.dumps(counts), identical=True)
+        say_profile("mesh", f"{kind}_{method}_batch", eng.step)
+
+    def sweep(mctx, kind, strategy, launches_want):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        net = materialize(mctx, k=MAT_K, method="pallas", row_tile=ROW_TILE,
+                          shard_strategy=strategy, use_cache=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, paths = dict(ops.LAUNCHES), dict(ops.COOCCUR_PATHS)
+        if not np.array_equal(_host_slots(net), want_net):
+            raise AssertionError(f"{kind} mesh network ({strategy}) != "
+                                 "unsharded")
+        if not counts["cooccur_counts"] == paths["tma"] == launches_want:
+            raise AssertionError(f"{kind} mesh {strategy}: "
+                                 f"{counts['cooccur_counts']} cooccur "
+                                 f"launches ({paths}), not {launches_want} "
+                                 "on the TMA path")
+        for name in total:
+            total[name] += counts[name]
+        say("mesh", mesh=kind, shards=n, strategy=strategy, method="pallas",
+            k=MAT_K, seconds=f"{secs:.3f}", unsharded_seconds=f"{exact_s:.3f}",
+            launches=json.dumps(counts), cooccur_paths=json.dumps(paths),
+            identical=True)
+
+    def filled(mctx):                  # shards holding any column / word
+        return sum(s.hi > s.lo for s in mctx.mesh_shards().shards)
+
+    # launches: "cols" one a row-block group per filled shard, "rows" one
+    # a group of each shard's contiguous range of row blocks
+    n_groups = -(-v // (GROUP * ROW_TILE))
+    rows_launches = sum(
+        len(range(b0 * ROW_TILE, b1 * ROW_TILE, GROUP * ROW_TILE))
+        for b0, b1 in shard_ranges(-(-v // ROW_TILE), n))
+
+    # term mesh
+    mctx = QueryContext(ctx.index, device=dev,
+                        mesh=make_cooc_mesh(devices=[dev] * n))
+    t0 = time.perf_counter()
+    shards = mctx.mesh_shards()
+    torch.cuda.synchronize()
+    say("mesh", mesh="terms", shards=n, shard_columns=json.dumps(
+        [s.hi - s.lo for s in shards.shards]),
+        shard_build_s=f"{time.perf_counter() - t0:.3f}")
+    for method, counter in counters.items():
+        queries(mctx, "terms", method, counter)
+    mctx.x_dense()
+    sweep(mctx, "terms", "rows", rows_launches)
+    sweep(mctx, "terms", "cols", filled(mctx) * n_groups)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sig = mctx.term_signatures(num_perm=DEFAULT_NUM_PERM)
+    torch.cuda.synchronize()
+    sig_s = time.perf_counter() - t0
+    if not torch.equal(sig.cpu(), want_sig):
+        raise AssertionError("term mesh signatures != unsharded")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got = materialize(mctx, k=MAT_K, mode="approx", method="pallas",
+                      row_tile=ROW_TILE, use_cache=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    if not (np.array_equal(_host_slots(got), want_approx[0])
+            and got.stats == want_approx[1]
+            and got.recall_estimate == want_approx[2]):
+        raise AssertionError("term mesh approx network != unsharded")
+    if counts["postings_counts"] == 0 \
+            or counts["postings_counts"] % filled(mctx):
+        raise AssertionError(f"term mesh approx: {counts} launches")
+    for name in total:
+        total[name] += counts[name]
+    say("mesh", mesh="terms", shards=n, mode="approx", method="pallas",
+        seconds=f"{secs:.3f}", unsharded_seconds=f"{approx_s:.3f}",
+        sig_s=f"{sig_s:.3f}", unsharded_sig_s=f"{sig_s_unsharded:.3f}",
+        launches=json.dumps(counts),
+        tiles_counted=got.stats.tiles_counted, identical=True,
+        signatures_identical=True)
+    del mctx, shards, got, sig
+    torch.cuda.empty_cache()
+
+    # doc mesh
+    dctx = QueryContext(ctx.index, device=dev,
+                        mesh=make_cooc_mesh(devices=[dev] * n, shard="docs"))
+    say("mesh", mesh="docs", shards=n, shard_words=json.dumps(
+        [s.hi - s.lo for s in dctx.mesh_shards().shards]))
+    for method in counters:
+        queries(dctx, "docs", method, "postings_counts")
+    dctx.x_dense()
+    sweep(dctx, "docs", "cols", filled(dctx) * n_groups)
+    del dctx
+    torch.cuda.empty_cache()
+    say("mesh", seconds=f"{time.perf_counter() - t_phase:.1f}",
+        launches=json.dumps(total), max_memory_allocated_gb=
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return total
 
 
 def _pad_block(docs, max_len=64):
@@ -2502,9 +2799,10 @@ def main(argv=()) -> int:
     phase_strings(dev)
     ctx, hidx, seeds, launches = phase_csl(dev)
     exact, exact_s = phase_materialize(dev, ctx, hidx, launches)
-    phase_approx(dev, ctx, hidx, exact, exact_s)
+    approx = phase_approx(dev, ctx, hidx, exact, exact_s)
     kernels = phase_kernels(dev, ctx, seeds, launches)
-    del ctx, hidx, exact               # the CSL artifacts, about 33 GB
+    phase_mesh(dev, ctx, seeds, exact, exact_s, *approx)
+    del ctx, hidx, exact, approx       # the CSL artifacts, about 33 GB
     torch.cuda.empty_cache()
     phase_serve(dev, phase_snapshot(dev, phase_stream(dev)[1]))
     dlrm = phase_dlrm(dev, launches)

@@ -28,8 +28,12 @@ statistics through :func:`repro_torch.core.materialize`, exactly or, with
 reference's format (:mod:`repro_torch.core.snapshot`), so either package
 restores what the other saved.
 
-Not ported yet (``ROADMAP.md``): device meshes; ``mesh=`` and ``devices=``
-raise ``NotImplementedError``.
+**Sharded serving.**  ``CoocIndex(devices=4)`` (the first four cards) or
+``devices=["cuda:0"] * 4`` builds a term-sharded query mesh
+(:func:`repro_torch.core.distributed.make_cooc_mesh`); ``mesh=`` takes a
+prebuilt one (``shard="docs"`` for doc sharding).  Every query and
+materialization then runs sharded, with the single device's answers, and
+``load(mesh=, devices=)`` restores a snapshot onto a mesh.
 """
 from __future__ import annotations
 
@@ -49,11 +53,7 @@ from repro_torch.core.network import (
     to_edge_dict,
 )
 from repro_torch.core.query import QueryResult
-from repro_torch.core.query_context import (
-    CapacityError,
-    QueryContext,
-    not_ported,
-)
+from repro_torch.core.query_context import CapacityError, QueryContext
 from repro_torch.core.storage import make_storage
 from repro_torch.data.tokenizer import DEFAULT_STOPWORDS, tokenize
 from repro_torch.device import resolve_device
@@ -74,15 +74,33 @@ def parse_duration(spec: str) -> Optional[float]:
     return float(m.group(1)) * _DURATION_SECONDS[m.group(2)]
 
 
+def _resolve_mesh(mesh, devices):
+    """mesh= (prebuilt) XOR devices= (an int takes the first N cards, a
+    sequence is used as given; terms are the split axis —
+    ``make_cooc_mesh(shard="docs")`` callers pass mesh=)."""
+    if mesh is not None and devices is not None:
+        raise ValueError("pass mesh= (a prebuilt query mesh) OR "
+                         "devices= (a device count/list to build a "
+                         "term-sharded one over), not both")
+    if devices is not None:
+        from repro_torch.core.distributed import make_cooc_mesh
+        if isinstance(devices, int):
+            return make_cooc_mesh(devices)
+        return make_cooc_mesh(devices=devices)
+    return mesh
+
+
 class CoocIndex:
     """Text-level co-occurrence index: tokenizer + lexicon + live packed
-    index + plan-aware query engine, on one device.  The
+    index + plan-aware query engine, on one device or a mesh.  The
     depth/topk/beam/dedup/method arguments are the default query plan;
     every query method takes per-call overrides.  ``window`` enters
     sliding-window (streaming) mode: at most ``window`` live docs,
     oldest-ingest-first eviction, fixed memory; ``cold_store`` (a mapping
     or a :func:`~repro_torch.core.storage.make_storage` config) keeps the
-    evicted batches for ``scope="all-time"``."""
+    evicted batches for ``scope="all-time"``.  ``mesh`` / ``devices``
+    serve sharded (see the module docstring); ``device`` must then name
+    the mesh's first device."""
 
     def __init__(self, *, device="cuda", capacity: Optional[int] = None,
                  vocab_capacity: int = 256,
@@ -96,8 +114,7 @@ class CoocIndex:
                 f"capacity={capacity} and window={window} are contradictory:"
                 " window mode pins the doc buffer at ceil(window/32)*32"
                 " slots and reuses them forever — pass only one")
-        if mesh is not None or devices is not None:
-            raise not_ported("sharded serving (mesh=/devices=)")
+        mesh = _resolve_mesh(mesh, devices)
         dev = resolve_device(device)
         self.lexicon = Lexicon()
         self.stopwords = stopwords
@@ -107,9 +124,10 @@ class CoocIndex:
             cold_store = make_storage(cold_store)
         self.ctx = QueryContext.from_docs([], max(int(vocab_capacity), 1),
                                           capacity=cap, device=dev,
-                                          window=window,
+                                          window=window, mesh=mesh,
                                           cold_store=cold_store)
-        self.engine = CoocEngine(self.ctx, device=dev, depth=depth,
+        self.engine = CoocEngine(self.ctx, device=self.ctx.device,
+                                 depth=depth,
                                  topk=topk, beam=beam, dedup=dedup,
                                  method=method, q_batch=q_batch,
                                  on_overflow=on_overflow)
@@ -366,10 +384,11 @@ class CoocIndex:
         ``device``: it answers every query exactly like the saved index;
         warm caches rebuild lazily.  ``cold_store`` receives the
         snapshot's spilled blocks (the constructor's ``make_storage``
-        configs; a fresh dict when omitted and the snapshot has any).  A
-        bare-context snapshot raises :class:`SnapshotError`."""
-        if mesh is not None or devices is not None:
-            raise not_ported("sharded serving (mesh=/devices=)")
+        configs; a fresh dict when omitted and the snapshot has any).
+        ``mesh`` / ``devices`` restore onto a query mesh, as the
+        constructor takes them: one snapshot, any mesh.  A bare-context
+        snapshot raises :class:`SnapshotError`."""
+        mesh = _resolve_mesh(mesh, devices)
         dev = resolve_device(device)
         if cold_store is not None:
             cold_store = make_storage(cold_store)
@@ -380,7 +399,7 @@ class CoocIndex:
                 f"{meta.get('kind')!r}); restore it with "
                 "repro_torch.core.snapshot.load_context instead")
         ctx = snapshot.context_from_state(arrays, meta, device=dev,
-                                          cold_store=cold_store)
+                                          mesh=mesh, cold_store=cold_store)
         cm = meta["cooc"]
         eng = cm["engine"]
         idx = cls.__new__(cls)
@@ -389,7 +408,8 @@ class CoocIndex:
             idx.lexicon.add(term)
         idx.stopwords = set(cm["stopwords"])
         idx.ctx = ctx
-        idx.engine = CoocEngine(ctx, device=dev, depth=int(eng["depth"]),
+        idx.engine = CoocEngine(ctx, device=ctx.device,
+                                depth=int(eng["depth"]),
                                 topk=int(eng["topk"]), beam=int(eng["beam"]),
                                 dedup=bool(eng["dedup"]),
                                 method=eng["method"],
@@ -428,7 +448,8 @@ class CoocIndex:
 
     @property
     def mesh(self):
-        return None
+        """The query mesh this index serves on (None = single device)."""
+        return self.ctx.mesh
 
     def stats(self):
         return self.engine.stats()

@@ -6,7 +6,10 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
+    COOC_SHAPES,
     RECSYS_SHAPES,
+    BaseConfig,
+    CoocConfig,
     RecSysConfig,
     ShapeSpec,
     replace,
@@ -22,9 +25,9 @@ def list_archs() -> List[str]:
     return list(_ARCH_MODULES)
 
 
-def get_config(arch: str):
+def get_config(arch: str) -> BaseConfig:
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; the port has "
-                       f"{list_archs()} (the others are ROADMAP.md §1 "
-                       "item 8)")
+                       f"{list_archs()} (the others wait for the side "
+                       "models, ROADMAP.md §1)")
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG

@@ -1,12 +1,15 @@
 """The paper's core in PyTorch: the bit-packed inverted index, the BFS
-construction (Algorithm 3), the typed query surface, the query context
-with its sliding window and cold tier, exact and sketch-pruned
-whole-corpus materialization, and snapshots.  Mirrors ``repro.core`` for
-the parts ported so far."""
+construction (Algorithm 3) with its host references (Algorithms 1 and 2),
+the typed query surface, the query context with its sliding window and
+cold tier, exact and sketch-pruned whole-corpus materialization,
+snapshots, and the term- and doc-sharded query mesh.  Mirrors
+``repro.core``."""
 from repro_torch.core.inverted_index import (  # noqa: F401
     Lexicon,
     PackedIndex,
+    and_term,
     dense_operand,
+    doc_freq_under,
     doc_freq_under_batch,
     doc_freq_under_batch_gemm,
     empty_mask,
@@ -16,9 +19,11 @@ from repro_torch.core.inverted_index import (  # noqa: F401
     incidence_dense,
     ingest,
     ingest_at,
+    mask_count,
     pack_docs,
     retire_docs,
     slots_bitmap,
+    term_postings,
     to_uint32,
     unpack_bitmap,
 )
@@ -48,6 +53,7 @@ from repro_torch.core.query import (  # noqa: F401
     unregister_count_method,
 )
 from repro_torch.core.query_context import (  # noqa: F401
+    COUNT_METHODS,
     CapacityError,
     QueryContext,
 )
@@ -55,10 +61,13 @@ from repro_torch.core.cooccurrence import (  # noqa: F401
     HostIndex,
     bfs_construct,
     bfs_construct_batch,
+    bfs_construct_host,
     bfs_construct_host_fast,
     build_host_index,
     chunked_top_k,
     construct,
+    recursive_construct_host,
+    traversal_construct_dense,
     traversal_construct_host,
 )
 from repro_torch.core.materialize import materialize  # noqa: F401,E402
@@ -94,4 +103,14 @@ from repro_torch.core.snapshot import (  # noqa: F401
     read_snapshot,
     save_context,
     write_snapshot,
+)
+from repro_torch.core.distributed import (  # noqa: F401
+    CoocMesh,
+    make_cooc_mesh,
+    n_shards,
+    shard_kind,
+    sharded_block_topk,
+    sharded_counts,
+    sharded_signatures,
+    validate_mesh,
 )

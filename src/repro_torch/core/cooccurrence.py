@@ -3,13 +3,18 @@
 Mirrors ``repro.core.cooccurrence``:
 
 * the numpy host oracles ``traversal_construct_host`` (Algorithm 1),
-  ``build_host_index`` and ``bfs_construct_host_fast`` (Algorithm 3 as a
-  search engine runs it on a CPU), copied;
+  ``recursive_construct_host`` (Algorithm 2), ``bfs_construct_host``
+  (Algorithm 3 on a dense incidence), ``build_host_index`` and
+  ``bfs_construct_host_fast`` (Algorithm 3 as a search engine runs it on a
+  CPU), copied, and ``traversal_construct_dense``, the traversal baseline
+  as one ``X^T X`` product in torch;
 * ``bfs_construct_batch``: the level-synchronous beam BFS over the packed
   index, written batch-major — the frontier of Q queries is one (Q*B, W)
   mask block and the visited sets one (Q, V) block, where the reference
   ``jax.vmap``s a single-query BFS.  Results are bit-identical to it,
-  values and tie order.
+  values and tie order.  With a mesh (``mesh=``, or the context's) each
+  level runs term- or doc-sharded (:mod:`repro_torch.core.distributed`),
+  bit-identical to the single-device level.
 
 Edge semantics (paper §3): an edge (a, b, w) means "term b is one of the
 top-k most frequent terms among documents matching the filter path ending
@@ -42,6 +47,93 @@ def traversal_construct_host(doc_terms: Sequence[Sequence[int]],
             for b in uniq[i + 1:]:
                 counts[(a, b)] = counts.get((a, b), 0) + 1
     return counts
+
+
+def traversal_construct_dense(x: torch.Tensor) -> torch.Tensor:
+    """The traversal baseline as one product: C = X^T X over the dense
+    incidence.  x: (D, V) 0/1 incidence of any dtype.  Returns (V, V)
+    float32 with C[v, v] = df(v) on the diagonal; the off-diagonal entries
+    are exact pair co-occurrence counts for D < 2^24."""
+    xf = x.to(torch.float32)
+    return xf.t() @ xf
+
+
+def recursive_construct_host(x: np.ndarray, seed_term: int, depth: int,
+                             topk: int, dedup: bool = True
+                             ) -> List[Tuple[int, int, int]]:
+    """Paper Algorithm 2 on a dense bool incidence matrix (reference only).
+
+    Returns [(src, dst, weight), ...] in DFS discovery order."""
+    edges: List[Tuple[int, int, int]] = []
+    visited = {int(seed_term)}
+
+    def rec(mask: np.ndarray, term: int, d: int) -> None:
+        if d >= depth:
+            return
+        counts = x[mask].sum(axis=0).astype(np.int64)
+        counts[term] = -1
+        if dedup:
+            for t in visited:
+                counts[t] = -1
+        order = np.argsort(-counts, kind="stable")[:topk]
+        chosen = [int(t) for t in order if counts[t] > 0]
+        for t in chosen:
+            edges.append((term, t, int(counts[t])))
+            if dedup:
+                visited.add(t)
+        for t in chosen:
+            rec(mask & x[:, t].astype(bool), t, d + 1)
+
+    seed_mask = x[:, int(seed_term)].astype(bool)
+    rec(seed_mask, int(seed_term), 0)
+    return edges
+
+
+def bfs_construct_host(x: np.ndarray, seed_term: int, depth: int, topk: int,
+                       beam: Optional[int] = None, dedup: bool = True
+                       ) -> List[Tuple[int, int, int]]:
+    """Paper Algorithm 3 on a dense bool incidence matrix (reference).
+
+    Level-synchronous BFS with an optional beam cap (by weight) per level,
+    as the device BFS runs it.  Returns [(src, dst, weight), ...]."""
+    edges: List[Tuple[int, int, int]] = []
+    visited = {int(seed_term)}
+    frontier: List[Tuple[np.ndarray, int]] = [
+        (x[:, int(seed_term)].astype(bool), int(seed_term))]
+    for _ in range(depth):
+        # (weight, mask, src, dst)
+        candidates: List[Tuple[int, np.ndarray, int, int]] = []
+        for mask, term in frontier:
+            counts = x[mask].sum(axis=0).astype(np.int64)
+            counts[term] = -1
+            if dedup:
+                for t in visited:
+                    counts[t] = -1
+            order = np.argsort(-counts, kind="stable")[:topk]
+            for t in order:
+                t = int(t)
+                if counts[t] > 0:
+                    edges.append((term, t, int(counts[t])))
+                    candidates.append((int(counts[t]),
+                                       mask & x[:, t].astype(bool), term, t))
+        # level-synchronous: all edge targets recorded this level -> visited
+        if dedup:
+            visited |= {c[3] for c in candidates}
+            seen_lvl = set()
+            uniq = []
+            for c in sorted(candidates, key=lambda c: -c[0]):
+                if c[3] not in seen_lvl:
+                    seen_lvl.add(c[3])
+                    uniq.append(c)
+            candidates = uniq
+        else:
+            candidates.sort(key=lambda c: -c[0])
+        if beam is not None:
+            candidates = candidates[:beam]
+        frontier = [(c[1], c[3]) for c in candidates]
+        if not frontier:
+            break
+    return edges
 
 
 class HostIndex(NamedTuple):
@@ -161,38 +253,82 @@ def chunked_top_k(x: torch.Tensor, k: int):
     return w, i
 
 
+def _check_x_dense(x: torch.Tensor, index: PackedIndex) -> None:
+    """The legacy ``x_dense=`` operand must be the port's own layout."""
+    if (x.dtype != torch.int8 or x.dim() != 2 or x.shape[0] != index.capacity
+            or x.shape[1] < index.vocab_size
+            or (x.shape[0] > 1 and x.stride(0) != 1)):
+        raise ValueError(
+            f"x_dense must be the int8 (capacity, V_pad) incidence with its "
+            f"doc axis contiguous, the .t() view of term-major storage that "
+            f"QueryContext.x_dense() returns (capacity {index.capacity}, V "
+            f"{index.vocab_size}); got {x.dtype} {tuple(x.shape)} with "
+            f"strides {x.stride()}")
+
+
 def _resolve_operands(index, method: str,
-                      operands: Optional[Mapping[str, torch.Tensor]]
-                      ) -> Tuple[PackedIndex, Dict[str, torch.Tensor]]:
-    """Unwrap a QueryContext and assemble the method's operands: explicit
-    ``operands`` first, then the context's cached artifact, then a
+                      operands: Optional[Mapping[str, torch.Tensor]], *,
+                      x_dense: Optional[torch.Tensor] = None, mesh=None):
+    """Unwrap a QueryContext and assemble the method's operands, and the
+    shard artifact when a mesh applies (the explicit ``mesh``, else the
+    context's).  Returns (index, operands, shards or None).
+
+    Precedence per needed operand: explicit ``operands`` entry > the
+    legacy ``x_dense`` argument > the context's cached artifact > a
     one-shot build from a bare index."""
     from repro_torch.core.query import get_count_method
     from repro_torch.core.query_context import QueryContext, pad_transposed
     ops: Dict[str, torch.Tensor] = dict(operands) if operands else {}
     needs = get_count_method(method).needs
+    pidx = index.index if isinstance(index, QueryContext) else index
+    if x_dense is not None:
+        _check_x_dense(x_dense, pidx)
+        ops.setdefault("x_dense", x_dense)
+    shards = None
     if isinstance(index, QueryContext):
-        ctx, index = index, index.index
+        ctx = index
+        mesh = ctx.mesh if mesh is None else mesh
         for name in needs:
             if name not in ops:
                 ops[name] = getattr(ctx, name)()
-    builders = {"x_dense": lambda: dense_operand(index),
-                "packed_t": lambda: index.packed.T.contiguous(),
-                "packed_t_pad": lambda: pad_transposed(index.packed)}
+        if mesh is not None:
+            shards = ctx.mesh_shards(mesh)
+    elif mesh is not None:
+        from repro_torch.core.distributed import ShardedIndex
+        shards = ShardedIndex(pidx, mesh)
+    builders = {"x_dense": lambda: dense_operand(pidx),
+                "packed_t": lambda: pidx.packed.T.contiguous(),
+                "packed_t_pad": lambda: pad_transposed(pidx.packed)}
     for name in needs:
         if name not in ops:
             ops[name] = builders[name]()
-    return index, ops
+    return pidx, ops, shards
+
+
+def mask_level(counts: torch.Tensor, terms: torch.Tensor,
+               valid: torch.Tensor,
+               visited_rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """The level masks on (R, V) counts: each row's own term (a term id
+    that names no column masks nothing), the visited columns
+    (``visited_rows`` (R, V) bool; None without dedup) and the invalid
+    rows go to -1."""
+    cols = torch.arange(counts.shape[1], device=counts.device)
+    counts = torch.where(cols[None, :] == terms.clamp(min=0)[:, None], -1,
+                         counts)
+    if visited_rows is not None:
+        counts = torch.where(visited_rows, -1, counts)
+    return torch.where(valid[:, None], counts, -1)
 
 
 def _expand_level(index: PackedIndex, state: BFSState, n_queries: int,
                   topk: int, dedup: bool, method: str,
-                  operands: Mapping[str, torch.Tensor]):
+                  operands: Mapping[str, torch.Tensor], shards=None):
     """One BFS level for Q queries at once: frontier counts + masks + top-k
-    (the method's ``level_fn`` when it has one, else its counts then the
-    masks then :func:`chunked_top_k`), then per query the stable dedup and
-    the beam re-selection.  Returns the next state and this level's edges
-    as four (Q, B, topk) tensors."""
+    (sharded across a mesh when ``shards`` is given; else the method's
+    ``level_fn`` when it has one, else its counts then the masks then
+    :func:`chunked_top_k`), then per query the stable dedup and the beam
+    re-selection.  Returns the next state and this level's edges as four
+    (Q, B, topk) tensors."""
     from repro_torch.core.query import get_count_method
     q = n_queries
     r = state.masks.shape[0]
@@ -200,18 +336,20 @@ def _expand_level(index: PackedIndex, state: BFSState, n_queries: int,
     dev = state.masks.device
 
     m = get_count_method(method)
-    if m.level_fn is not None:
+    if shards is not None:
+        from repro_torch.core.distributed import sharded_level_topk
+        w_top, idx_top = sharded_level_topk(
+            shards, state.masks, state.terms, state.valid, state.visited,
+            method, operands, shards.mesh, k=topk, dedup=dedup)
+    elif m.level_fn is not None:
         w_top, idx_top = m.level_fn(index, state.masks, state.terms,
                                     state.valid, state.visited, operands,
                                     k=topk, dedup=dedup)
     else:
-        counts = m.fn(index, state.masks, operands)               # (R, V)
-        rows = torch.arange(r, device=dev)
-        counts[rows, state.terms.clamp(min=0)] = -1               # self-pairs
-        if dedup:
-            counts = torch.where(
-                state.visited.repeat_interleave(b, dim=0), -1, counts)
-        counts = torch.where(state.valid[:, None], counts, -1)
+        counts = mask_level(m.fn(index, state.masks, operands), state.terms,
+                            state.valid,
+                            state.visited.repeat_interleave(b, dim=0)
+                            if dedup else None)
         w_top, idx_top = chunked_top_k(counts, topk)
     w_top = w_top.to(torch.int32)
     idx_top = idx_top.to(torch.int64)
@@ -291,9 +429,10 @@ def initial_state(index: PackedIndex, seed_terms, *, beam: int,
 
 def bfs_construct_batch(index, seed_terms, *, depth: int, topk: int,
                         beam: int, dedup: bool = True, method: str = "gemm",
+                        x_dense: Optional[torch.Tensor] = None,
                         operands: Optional[Mapping[str, torch.Tensor]] = None,
-                        scope_mask: Optional[torch.Tensor] = None
-                        ) -> CoocNetwork:
+                        scope_mask: Optional[torch.Tensor] = None,
+                        mesh=None) -> CoocNetwork:
     """Paper Algorithm 3 for a batch of queries: seed_terms (Q, S) term
     ids padded with -1 (S <= beam).
 
@@ -305,14 +444,20 @@ def bfs_construct_batch(index, seed_terms, *, depth: int, topk: int,
     Returns a CoocNetwork of ``Q * depth * beam * topk`` slots, ordered
     query, level, frontier row, rank — the reference's vmapped layout.
     No step reads a device value back to the host.
+
+    ``x_dense`` is a legacy spelling of ``operands={"x_dense": ...}``: the
+    port's int8 operand, ``QueryContext.x_dense()``.  ``mesh`` (default:
+    the context's) runs each level term- or doc-sharded across the mesh
+    (:mod:`repro_torch.core.distributed`), bit-identical to one device.
     """
-    index, ops = _resolve_operands(index, method, operands)
+    index, ops, shards = _resolve_operands(index, method, operands,
+                                           x_dense=x_dense, mesh=mesh)
     state = initial_state(index, seed_terms, beam=beam, scope_mask=scope_mask)
     q = state.visited.shape[0]
     levels = []
     for _ in range(depth):
         state, edges = _expand_level(index, state, q, topk, dedup, method,
-                                     ops)
+                                     ops, shards)
         levels.append(edges)
     src, dst, wt, ev = (torch.stack([e[i] for e in levels], dim=1).reshape(-1)
                         for i in range(4))
@@ -322,14 +467,17 @@ def bfs_construct_batch(index, seed_terms, *, depth: int, topk: int,
 
 def bfs_construct(index, seed_terms, *, depth: int, topk: int, beam: int,
                   dedup: bool = True, method: str = "gemm",
+                  x_dense: Optional[torch.Tensor] = None,
                   operands: Optional[Mapping[str, torch.Tensor]] = None,
-                  scope_mask: Optional[torch.Tensor] = None) -> CoocNetwork:
+                  scope_mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> CoocNetwork:
     """One query: seed_terms (S,) padded with -1 — the Q = 1 case of
     :func:`bfs_construct_batch`; ``depth * beam * topk`` edge slots."""
     seeds = torch.as_tensor(seed_terms).reshape(1, -1)
     return bfs_construct_batch(index, seeds, depth=depth, topk=topk,
                                beam=beam, dedup=dedup, method=method,
-                               operands=operands, scope_mask=scope_mask)
+                               x_dense=x_dense, operands=operands,
+                               scope_mask=scope_mask, mesh=mesh)
 
 
 def construct(index, spec) -> "QueryResult":

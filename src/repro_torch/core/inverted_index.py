@@ -197,6 +197,31 @@ def empty_mask(index: PackedIndex) -> torch.Tensor:
     return torch.where(m >= 2 ** 31, m - 2 ** 32, m).to(torch.int32)
 
 
+def term_postings(index: PackedIndex, term_id) -> torch.Tensor:
+    """Postings bitmap of one term: column ``term_id`` of ``packed``,
+    (W,) int32 bit patterns."""
+    return index.packed[:, int(term_id)]
+
+
+def and_term(index: PackedIndex, mask: torch.Tensor,
+             term_id) -> torch.Tensor:
+    """Add a term to the filter conditions (paper: 'add word to retrieval
+    conditions') = AND its postings into the filter bitmap."""
+    return mask & term_postings(index, term_id)
+
+
+def mask_count(mask: torch.Tensor) -> torch.Tensor:
+    """Number of documents matching a filter bitmap (an int32 scalar)."""
+    return popcount32(mask).sum(dtype=torch.int32)
+
+
+def doc_freq_under(index: PackedIndex, mask: torch.Tensor) -> torch.Tensor:
+    """Document frequency of every term within the filtered doc set:
+    ``f[v] = sum_w popcount(mask[w] & packed[w, v])``, (V,) int32 — the
+    single-filter case of :func:`doc_freq_under_batch`."""
+    return postings_counts_ref(mask[None, :], index.packed)[0]
+
+
 def doc_freq_under_batch(index: PackedIndex,
                          masks: torch.Tensor) -> torch.Tensor:
     """masks (B, W) -> counts (B, V): every frontier filter against the

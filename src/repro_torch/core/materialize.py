@@ -42,8 +42,13 @@ registry takes unchanged — under ``"pallas"`` that is the postings kernel
 (``kernels.ops.postings_counts``) on the gathered operands.  Emitted edge
 weights are exact; edges can only be missed.
 
-Not ported yet (``ROADMAP.md``): ``mesh=`` and the sharded strategies;
-each raises ``NotImplementedError``.
+**Mesh** (``mesh=``, default the context's;
+:mod:`repro_torch.core.distributed`): ``shard_strategy="rows"`` (the
+default under ``"auto"``) gives each shard a contiguous range of the row
+blocks against the whole index; ``"cols"`` splits each row block's
+columns across the shards and merges only their top-k candidates.  Both
+give the single-device network bit for bit.  The approximate sweep under
+a mesh counts each candidate tile through the column-split merge.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ from repro_torch.core.inverted_index import (
 )
 from repro_torch.core.network import CoocNetwork
 from repro_torch.core.query import get_count_method
-from repro_torch.core.query_context import QueryContext, not_ported
+from repro_torch.core.query_context import QueryContext
 from repro_torch.core.sketch import (
     DEFAULT_NUM_PERM,
     DEFAULT_THRESHOLD,
@@ -101,15 +106,22 @@ def _row_masks(rows: torch.Tensor, r0: int, bm: int) -> torch.Tensor:
 
 def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
                 scope_mask: Optional[torch.Tensor], operands, r0: int, *,
-                k: int, bm: int, method: str):
+                k: int, bm: int, method: str, shards=None):
     """Top-k neighbors of terms ``[r0, r0 + bm)``: (weights, ids), both
     (bm, k), weight -1 marking empty slots.  ``rows`` is the (V, W)
     transposed postings; rows past V have all-zero masks.  ``bm`` is a
-    multiple of the row tile: one row block, or a group of them."""
+    multiple of the row tile: one row block, or a group of them.  With
+    ``shards`` the block's columns split across the mesh
+    (:func:`~repro_torch.core.distributed.sharded_block_topk`)."""
     v = pidx.vocab_size
     masks = _row_masks(rows, r0, bm)
     if scope_mask is not None:
         masks &= scope_mask[None, :]
+    if shards is not None:
+        from repro_torch.core.distributed import sharded_block_topk
+        own = torch.arange(r0, r0 + bm, device=masks.device)
+        return sharded_block_topk(shards, masks, own, operands, k=k,
+                                  method=method, mesh=shards.mesh)
     if method == "pallas":
         x_l = unpack_bitmap(masks, torch.int8).t()              # (D, bm)
         counts = ops.cooccur_counts(x_l, operands["x_dense"])[:, :v]
@@ -139,7 +151,7 @@ def _edge_slots(run_w: torch.Tensor, run_i: torch.Tensor):
 
 def _approx_block_topk(pidx: PackedIndex, rows: torch.Tensor, operands,
                        r0: int, cand: np.ndarray, rows_pos: np.ndarray, *,
-                       k: int, bm: int, method: str):
+                       k: int, bm: int, method: str, mesh=None):
     """Top-k neighbors of terms ``[r0, r0 + bm)`` over their LSH candidate
     columns only: (weights, global ids), both (bm, k) int32.
 
@@ -149,7 +161,10 @@ def _approx_block_topk(pidx: PackedIndex, rows: torch.Tensor, operands,
     so a pad column counts 0 and never emits an edge; under ``"gemm"``
     the dense operand's term-major rows are gathered, so the doc axis
     stays contiguous.  The count-method registry runs on the sub-problem
-    unchanged."""
+    unchanged; under a ``mesh`` the sub-problem's columns split across it
+    (:func:`~repro_torch.core.distributed.sharded_block_topk`, each shard
+    counting through the registry, so "pallas" is the postings kernel as
+    on one device)."""
     dev = pidx.device
     masks = _row_masks(rows, r0, bm)
     cand_t = torch.from_numpy(cand).to(dev)
@@ -164,6 +179,14 @@ def _approx_block_topk(pidx: PackedIndex, rows: torch.Tensor, operands,
         x_t = operands["x_dense"].t().index_select(0, safe)     # (C, D)
         x_t[pad] = 0
         sub_ops["x_dense"] = x_t.t()
+    if mesh is not None:
+        from repro_torch.core.distributed import sharded_block_topk
+        w, loc = sharded_block_topk(
+            sub_index, masks, torch.from_numpy(rows_pos).to(dev), sub_ops,
+            k=k, method=method, mesh=mesh, cooc_gemm=False)
+        ids = cand_t.clamp(min=0).to(torch.int32)[loc]
+        ids[:, min(k, len(cand)):] = 0
+        return w, ids
     counts = get_count_method(method).fn(sub_index, masks, sub_ops)
     cols = torch.arange(len(cand), device=dev)
     counts = torch.where(
@@ -174,7 +197,7 @@ def _approx_block_topk(pidx: PackedIndex, rows: torch.Tensor, operands,
 
 def _approx_sweep(pidx: PackedIndex, rows: torch.Tensor, operands,
                   per_block: List[Optional[np.ndarray]], *, k: int, bm: int,
-                  method: str):
+                  method: str, mesh=None):
     """The row-block loop of ``mode="approx"``: each block with
     candidates is counted against them (:func:`_approx_block_topk`), a
     block without any is skipped with no device work.  Returns the (V, k)
@@ -196,14 +219,16 @@ def _approx_sweep(pidx: PackedIndex, rows: torch.Tensor, operands,
         present = (cols[pos] == terms) & (terms < v)
         rows_pos = np.where(present, pos, len(cand)).astype(np.int64)
         w_b, i_b = _approx_block_topk(pidx, rows, operands, r0, cand,
-                                      rows_pos, k=k, bm=bm, method=method)
+                                      rows_pos, k=k, bm=bm, method=method,
+                                      mesh=mesh)
         ws.append(w_b)
         ids.append(i_b)
     return torch.cat(ws)[:v], torch.cat(ids)[:v], tiles_counted
 
 
 def _materialize_approx(index, ctx, *, k: int, method: str, row_tile: int,
-                        threshold: float, num_perm: int, sketch_seed: int,
+                        mesh, threshold: float, num_perm: int,
+                        sketch_seed: int,
                         use_cache: bool) -> ApproxCoocNetwork:
     """The ``mode="approx"`` sweep: signatures -> banding -> candidate
     tiles -> exact counts on the candidates only, with the work counted
@@ -215,7 +240,8 @@ def _materialize_approx(index, ctx, *, k: int, method: str, row_tile: int,
     cache_key = None
     if ctx is not None and use_cache:
         cache_key = ("materialize", "approx", k, method, bm,
-                     float(threshold), int(num_perm), int(sketch_seed))
+                     _mesh_key(mesh), float(threshold), int(num_perm),
+                     int(sketch_seed))
         hit = ctx.cached_artifact(cache_key, version=0)
         if hit is not None:
             return hit
@@ -223,6 +249,11 @@ def _materialize_approx(index, ctx, *, k: int, method: str, row_tile: int,
     bands, rows_per_band = lsh_params(threshold, num_perm)
     if ctx is not None:
         sigs_dev = ctx.term_signatures(num_perm=num_perm, seed=sketch_seed)
+    elif mesh is not None:
+        from repro_torch.core.distributed import sharded_signatures
+        sigs_dev = sharded_signatures(pidx.packed,
+                                      *hash_coefficients(num_perm,
+                                                         sketch_seed), mesh)
     else:
         sigs_dev = minhash_signatures(pidx.packed,
                                       *hash_coefficients(num_perm,
@@ -241,7 +272,8 @@ def _materialize_approx(index, ctx, *, k: int, method: str, row_tile: int,
     rows = (ctx.packed_t_pad()[:v, :w] if ctx is not None
             else pidx.packed.T)
     run_w, run_i, tiles_counted = _approx_sweep(
-        pidx, rows, operands, per_block, k=k, bm=bm, method=method)
+        pidx, rows, operands, per_block, k=k, bm=bm, method=method,
+        mesh=mesh)
     src, dst, weight, valid = _edge_slots(run_w, run_i)
 
     n_stripes = _round_up(v, TILE_QUANTUM) // TILE_QUANTUM
@@ -264,9 +296,16 @@ def _materialize_approx(index, ctx, *, k: int, method: str, row_tile: int,
     return net
 
 
+def _mesh_key(mesh):
+    """A mesh's part of a cache key: its shape and every device position,
+    so two shards on one card are not four (None off a mesh)."""
+    return None if mesh is None else mesh.key
+
+
 def materialize(index, *, k: int = 8, method: str = "gemm",
                 scope: Optional[str] = None, scope_mask=None,
-                row_tile: int = 128, use_cache: bool = True, mesh=None,
+                row_tile: int = 128, col_tile: int = 512,
+                use_cache: bool = True, mesh=None,
                 shard_strategy: str = "auto", mode: str = "exact",
                 threshold: float = DEFAULT_THRESHOLD,
                 num_perm: int = DEFAULT_NUM_PERM,
@@ -302,6 +341,21 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     stays exact-only (a scope rewrites every filter bitmap, so the live
     signatures would estimate the wrong Jaccard); ``scope="all-time"``
     re-sketches the combined live and cold index.
+
+    ``col_tile`` is the reference's column tile of its streamed "pallas"
+    merge.  Here a row block's counts reduce in one exact top-k, so it
+    changes no result; it keys the cache as the reference's does, and
+    ``"pallas"`` refuses a tile below 1, as the reference's tile
+    arithmetic does.
+
+    mesh: a query mesh (:func:`~repro_torch.core.distributed.
+    make_cooc_mesh`; default the context's).  ``shard_strategy`` picks
+    how it divides the sweep, both bit-exact against one device:
+    ``"rows"`` (each shard a contiguous range of row blocks against the
+    whole index, held once per distinct device), ``"cols"`` (each row
+    block's columns split across the shards, only their top-k candidates
+    merged), ``"auto"`` = ``"rows"``.  Off a mesh it is ignored.  Under a
+    mesh ``mode="approx"`` counts its candidate tiles column-split.
     """
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -315,6 +369,11 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
         raise ValueError(
             f"scope={scope!r} needs a QueryContext to resolve the scope "
             "name to a document bitmap; got a bare index")
+    if mesh is None and ctx is not None:
+        mesh = ctx.mesh
+    if mesh is not None:
+        from repro_torch.core.distributed import validate_mesh
+        validate_mesh(mesh)
     if shard_strategy not in ("auto", "rows", "cols"):
         raise ValueError(f"shard_strategy must be 'auto', 'rows' or 'cols', "
                          f"got {shard_strategy!r}")
@@ -334,39 +393,45 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
                 "mode='approx' prunes per row block, so the whole-sweep "
                 "shard_strategy='rows' launch does not apply; use "
                 "'auto'/'cols' (the sharded candidate merge)")
-    if mesh is not None or shard_strategy != "auto":
-        raise not_ported("sharded materialization (mesh=, shard_strategy=)")
     if scope == "all-time":
         if ctx.cold_blocks() == 0:
             scope = None                 # nothing spilled: the live network
         else:
             # a live ingest moves the epoch, a new spill the version; a
             # hit builds no stacked index
-            key = ("materialize", "all-time", k, method, row_tile, mode,
-                   float(threshold), int(num_perm), int(sketch_seed))
+            key = ("materialize", "all-time", k, method, row_tile, col_tile,
+                   _mesh_key(mesh), shard_strategy, mode, float(threshold),
+                   int(num_perm), int(sketch_seed))
             ver = ctx.cold_version()
             if use_cache:
                 hit = ctx.cached_artifact(key, ver)
                 if hit is not None:
                     return hit
             net = materialize(ctx.all_time_index(), k=k, method=method,
-                              row_tile=row_tile, mode=mode,
-                              threshold=threshold, num_perm=num_perm,
-                              sketch_seed=sketch_seed)
+                              row_tile=row_tile, col_tile=col_tile,
+                              mesh=mesh, shard_strategy=shard_strategy,
+                              mode=mode, threshold=threshold,
+                              num_perm=num_perm, sketch_seed=sketch_seed)
             if use_cache:
                 ctx.store_artifact(key, net, ver)
             return net
     if mode == "approx":
         return _materialize_approx(index, ctx, k=k, method=method,
-                                   row_tile=row_tile, threshold=threshold,
-                                   num_perm=num_perm,
+                                   row_tile=row_tile, mesh=mesh,
+                                   threshold=threshold, num_perm=num_perm,
                                    sketch_seed=sketch_seed,
                                    use_cache=use_cache)
+    strategy = None if mesh is None else (
+        "rows" if shard_strategy == "auto" else shard_strategy)
 
     pidx = ctx.index if ctx is not None else index
     v, w = pidx.vocab_size, pidx.n_words
-    # shrink the row tile toward tiny vocabularies
+    # shrink the tiles toward tiny vocabularies (the column tile only
+    # keys the cache: see the docstring)
     bm = min(row_tile, _round_up(v, 8))
+    bn = min(col_tile, _round_up(v, 128))
+    if method == "pallas" and bn < 1:
+        raise ValueError(f"col_tile must be >= 1, got {col_tile}")
 
     cache_key = None
     cache_ver = 0
@@ -374,7 +439,8 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
                                           or scope_mask is None):
         # versioned by (epoch, scope_version): a redefined scope misses
         # and the new store overwrites the superseded network
-        cache_key = ("materialize", k, method, scope, bm)
+        cache_key = ("materialize", k, method, scope, bm, bn,
+                     _mesh_key(mesh), strategy)
         cache_ver = ctx.scope_version(scope) if scope is not None else 0
         hit = ctx.cached_artifact(cache_key, cache_ver)
         if hit is not None:
@@ -390,7 +456,7 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
         operands = {"x_dense": ctx.x_dense() if ctx is not None
                     else dense_operand(pidx)}
     else:
-        _, operands = _resolve_operands(index, method, None)
+        _, operands, _ = _resolve_operands(index, method, None)
     if scope is not None:
         scope_mask = ctx.scope(scope)
     elif scope_mask is not None:
@@ -401,16 +467,28 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
             raise ValueError(f"scope_mask shape {tuple(scope_mask.shape)} != "
                              f"({w},) (one uint32 per 32 doc slots)")
 
-    ws, ids = [], []
-    n_rows = _round_up(v, bm)
-    step = GROUP * bm if method == "pallas" else bm
-    for r0 in range(0, n_rows, step):
-        w_b, i_b = _block_topk(pidx, rows, scope_mask, operands, r0, k=k,
-                               bm=min(step, n_rows - r0), method=method)
-        ws.append(w_b)
-        ids.append(i_b)
-    run_w = torch.cat(ws)[:v]                                   # (V, k)
-    run_i = torch.cat(ids)[:v].to(torch.int32)
+    shards = None
+    if mesh is not None:
+        from repro_torch.core.distributed import shard_index
+        shards = shard_index(ctx if ctx is not None else pidx, mesh)
+    if strategy == "rows":
+        from repro_torch.core.distributed import sharded_row_block_topk
+        run_w, run_i = sharded_row_block_topk(
+            shards, rows, scope_mask, operands, k=k, bm=bm, method=method,
+            mesh=mesh)
+    else:
+        ws, ids = [], []
+        n_rows = _round_up(v, bm)
+        step = GROUP * bm if method == "pallas" else bm
+        for r0 in range(0, n_rows, step):
+            w_b, i_b = _block_topk(pidx, rows, scope_mask, operands, r0,
+                                   k=k, bm=min(step, n_rows - r0),
+                                   method=method, shards=shards)
+            ws.append(w_b)
+            ids.append(i_b)
+        run_w, run_i = torch.cat(ws), torch.cat(ids)
+    run_w = run_w[:v]                                           # (V, k)
+    run_i = run_i[:v].to(torch.int32)
     net = CoocNetwork(*_edge_slots(run_w, run_i))
     if cache_key is not None:
         ctx.store_artifact(cache_key, net, cache_ver)

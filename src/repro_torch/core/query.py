@@ -16,8 +16,9 @@ The built-in count methods:
 
 A method's ``fn(index, masks, operands)`` returns the (R, V) counts; an
 optional ``level_fn`` replaces the counts -> masks -> top-k chain with one
-call that must be bit-identical to it.  ``"fused"`` always runs through
-its ``level_fn``; its counts-only ``fn`` is the plain popcount.
+call that must be bit-identical to it.  ``"fused"`` runs the BFS through
+its ``level_fn``; its counts-only ``fn`` (materialization, and a doc
+mesh's per-shard counts) is the postings kernel, whose function it is.
 """
 from __future__ import annotations
 
@@ -127,6 +128,15 @@ def _pallas_counts(index, masks, operands):
     return ops.postings_counts(masks, index.packed)
 
 
+def _fused_counts(index, masks, operands):
+    """Counts-only form of the fused method: the level step's popcount
+    counts, through the postings kernel (``kernels.ops.postings_counts``)
+    on a CUDA tensor and its plain version on the CPU.  The reference
+    reads them off its padded transpose when present; the counts are the
+    same."""
+    return ops.postings_counts(masks, index.packed)
+
+
 def _fused_level(index, masks, terms, valid, visited, operands, *, k, dedup):
     """One ``kernels.ops.level_step`` call over the index's own postings:
     counts, masking and top-k never leave the kernel."""
@@ -137,7 +147,7 @@ def _fused_level(index, masks, terms, valid, visited, operands, *, k, dedup):
 register_count_method("gemm", ("x_dense",), _gemm_counts)
 register_count_method("popcount", (), _popcount_counts)
 register_count_method("pallas", (), _pallas_counts)
-register_count_method("fused", (), _popcount_counts, level_fn=_fused_level)
+register_count_method("fused", (), _fused_counts, level_fn=_fused_level)
 
 
 # ---------------------------------------------------------------------------

@@ -35,13 +35,16 @@ the device from the word rows it touches and spilled as a self-contained
 payload, the reference's format; :meth:`QueryContext.all_time_index`
 stacks the cold blocks under the live bitmap.
 
-The device mesh is not ported yet (``ROADMAP.md``); asking for it raises
-``NotImplementedError``.
+**Mesh.**  With ``mesh=`` (:func:`~repro_torch.core.distributed.
+make_cooc_mesh`) the context lives on the mesh's first device and every
+query path runs sharded across the mesh (:mod:`repro_torch.core.
+distributed`), bit-identical to the single-device path.  The per-shard
+operands are one more epoch artifact (:meth:`QueryContext.mesh_shards`).
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, Optional, Sequence, Tuple, Union
+from typing import Deque, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,21 +61,37 @@ from repro_torch.core.inverted_index import (
     slots_bitmap,
     to_uint32,
 )
-from repro_torch.core.query import get_count_method
+from repro_torch.core.query import count_method_names, get_count_method
 from repro_torch.core.storage import ColdBlock, decode_block, encode_block
 from repro_torch.kernels.ref import popcount32
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical_device, resolve_device
+
+
+class _CountMethodsView(Mapping):
+    """Deprecated read-only alias over the count-method registry: the
+    legacy ``COUNT_METHODS`` mapping of method name to ``needs``, live as
+    methods are registered.  The registry (:mod:`repro_torch.core.query`)
+    is the one source of truth."""
+
+    def __getitem__(self, name):
+        try:
+            return get_count_method(name).needs
+        except ValueError as e:           # Mapping protocol wants KeyError
+            raise KeyError(name) from e
+
+    def __iter__(self):
+        return iter(count_method_names())
+
+    def __len__(self):
+        return len(count_method_names())
+
+
+#: Deprecated: use repro_torch.core.query.get_count_method.
+COUNT_METHODS = _CountMethodsView()
 
 
 class CapacityError(ValueError):
     """Ingest would overflow the packed index's doc capacity."""
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error every not-yet-ported surface of the port raises."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md "
-        "(modules still to port)")
 
 
 def pad_transposed(packed: torch.Tensor) -> torch.Tensor:
@@ -85,13 +104,22 @@ def pad_transposed(packed: torch.Tensor) -> torch.Tensor:
 
 
 class QueryContext:
-    """Packed index + epoch-versioned caches, on one device."""
+    """Packed index + epoch-versioned caches, on one device or on the
+    first device of a mesh."""
 
     def __init__(self, index: PackedIndex, *, device="cuda",
                  window: Optional[int] = None, mesh=None, cold_store=None):
-        if mesh is not None:
-            raise not_ported("sharded execution (mesh=)")
         self.device = resolve_device(device)
+        if mesh is not None:
+            from repro_torch.core.distributed import mesh_device
+            first = mesh_device(mesh)
+            if canonical_device(self.device) != first:
+                raise ValueError(
+                    f"device={self.device} but the mesh's first device is "
+                    f"{first}: a meshed context lives there (pass "
+                    f"device={str(first)!r})")
+            self.device = first
+        self._mesh = mesh
         self._index = PackedIndex(index.packed.to(self.device),
                                   index.doc_freq.to(self.device),
                                   int(index.n_docs))
@@ -101,7 +129,7 @@ class QueryContext:
         self._cold_seq = 0        # next spill key / cold-tier version
         self.epoch = 0
         self.unpack_count = 0   # monitoring: dense rebuilds == ingest epochs
-        self._cache: Dict[str, Tuple[int, torch.Tensor]] = {}
+        self._cache: Dict[object, Tuple[int, object]] = {}
         # generic epoch-versioned artifact cache: key -> (epoch, version, value)
         self._artifact_cache: Dict[Tuple, Tuple[int, int, object]] = {}
         self._scope_ver: Dict[str, int] = {}
@@ -151,6 +179,11 @@ class QueryContext:
     @property
     def index(self) -> PackedIndex:
         return self._index
+
+    @property
+    def mesh(self):
+        """The context's query mesh (None = single-device execution)."""
+        return self._mesh
 
     @property
     def vocab_size(self) -> int:
@@ -375,7 +408,7 @@ class QueryContext:
 
     # -- cached artifacts ---------------------------------------------------
 
-    def _artifact(self, name: str, build):
+    def _artifact(self, name, build):
         ent = self._cache.get(name)
         if ent is None or ent[0] != self.epoch:
             ent = (self.epoch, build())
@@ -408,7 +441,9 @@ class QueryContext:
                         seed: int = 0) -> torch.Tensor:
         """Per-term MinHash signatures (V, num_perm), int32 uint32 patterns,
         over the live postings (:mod:`repro_torch.core.sketch`), cached per
-        epoch through :meth:`cached_artifact`.
+        epoch through :meth:`cached_artifact`.  Under a mesh they are
+        computed sharded alongside the postings
+        (:func:`repro_torch.core.distributed.sharded_signatures`).
 
         The rebuild is incremental: each live ingest block is hashed once
         (keyed on block identity: a live block's bits never change) and
@@ -424,6 +459,11 @@ class QueryContext:
             return hit
         v = self.vocab_size
         a, b = sketch.hash_coefficients(num_perm, seed)
+        if self._mesh is not None:
+            from repro_torch.core.distributed import sharded_signatures
+            sig = sharded_signatures(self._index.packed, a, b, self._mesh)
+            self.store_artifact(key, sig)
+            return sig
         prev = {id(e[0]): e for e in self._sketch_blocks.get(cfg, [])}
         ents = []
         for blk in self._blocks:
@@ -445,6 +485,22 @@ class QueryContext:
                                       device=self.device)
         self.store_artifact(key, sig)
         return sig
+
+    def mesh_shards(self, mesh=None):
+        """The per-shard operands of the live index over ``mesh``
+        (default: the context's own), a :class:`~repro_torch.core.
+        distributed.ShardedIndex` built once per epoch: an ingest,
+        eviction or vocabulary growth rebuilds it, a query never does.
+        Only the current epoch's shards are kept."""
+        from repro_torch.core.distributed import ShardedIndex
+        mesh = self._mesh if mesh is None else mesh
+        if mesh is None:
+            raise ValueError("mesh_shards needs a mesh: the context has none")
+        name = ("shards",) + mesh.key
+        for key in [k for k, e in self._cache.items()
+                    if isinstance(k, tuple) and e[0] != self.epoch]:
+            del self._cache[key]
+        return self._artifact(name, lambda: ShardedIndex(self._index, mesh))
 
     def cached_artifact(self, key: Tuple, version: int = 0):
         """Epoch- and version-checked lookup (None on a miss)."""

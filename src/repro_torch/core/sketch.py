@@ -105,18 +105,22 @@ def _set_bits(rows: torch.Tensor, base: torch.Tensor
 
 
 def _hash_min(slots: torch.Tensor, terms: torch.Tensor, v: int,
-              a: np.ndarray, b: np.ndarray) -> torch.Tensor:
+              a: np.ndarray, b: np.ndarray,
+              perm_tile: int = PERM_CHUNK) -> torch.Tensor:
     """(V, P) signatures as int32 patterns: per term and permutation, the
     unsigned min of ``(a_p * slot + b_p) mod 2^32`` over the term's
-    (slot, term) pairs, :data:`SIG_EMPTY` where it has none.  int64 keeps
-    ``a * slot`` exact (a < 2^32, slot < 2^31) before the mask."""
+    (slot, term) pairs, :data:`SIG_EMPTY` where it has none, hashed
+    ``perm_tile`` permutations a pass (at least one, as the reference
+    clamps it).  int64 keeps ``a * slot`` exact (a < 2^32, slot < 2^31)
+    before the mask."""
     dev = slots.device
     p = len(a)
+    step = max(int(perm_tile), 1)
     a_t = torch.from_numpy(np.asarray(a, np.int64)).to(dev)
     b_t = torch.from_numpy(np.asarray(b, np.int64)).to(dev)
     out = torch.empty((v, p), dtype=torch.int32, device=dev)
-    for p0 in range(0, p, PERM_CHUNK):
-        ac, bc = a_t[p0:p0 + PERM_CHUNK], b_t[p0:p0 + PERM_CHUNK]
+    for p0 in range(0, p, step):
+        ac, bc = a_t[p0:p0 + step], b_t[p0:p0 + step]
         h = (slots[:, None] * ac[None, :] + bc[None, :]) & _MASK32
         m = torch.full((v, len(ac)), SIG_EMPTY, dtype=torch.int64,
                        device=dev)
@@ -126,22 +130,36 @@ def _hash_min(slots: torch.Tensor, terms: torch.Tensor, v: int,
     return out
 
 
+def signatures_from_packed(packed: torch.Tensor, a: np.ndarray,
+                           b: np.ndarray, *, slot0: int = 0,
+                           perm_tile: int = PERM_CHUNK) -> torch.Tensor:
+    """:func:`minhash_signatures` of word rows whose first bit is doc slot
+    ``slot0`` (bit ``j`` of row ``u`` is slot ``slot0 + 32 u + j``): a doc
+    shard passes its own first slot, so the shards' partial signatures
+    min-merge into exactly the whole bitmap's."""
+    base = slot0 + torch.arange(packed.shape[0], dtype=torch.int64,
+                                device=packed.device) * 32
+    slots, terms = _set_bits(packed, base)
+    return _hash_min(slots, terms, packed.shape[1], a, b, perm_tile)
+
+
 def minhash_signatures(packed: torch.Tensor, a: np.ndarray,
-                       b: np.ndarray) -> torch.Tensor:
+                       b: np.ndarray, *,
+                       perm_tile: int = PERM_CHUNK) -> torch.Tensor:
     """Per-term MinHash signatures over the whole packed bitmap.
 
     packed: (W, V) int32 bit patterns; a/b: (P,) uint32 coefficients
     (:func:`hash_coefficients`).  Returns (V, P) int32 uint32 patterns —
     row ``v`` holds ``min_{d in postings(v)} (a_p * d + b_p)`` per
-    permutation, :data:`SIG_EMPTY` where the term has no postings."""
-    base = torch.arange(packed.shape[0], dtype=torch.int64,
-                        device=packed.device) * 32
-    slots, terms = _set_bits(packed, base)
-    return _hash_min(slots, terms, packed.shape[1], a, b)
+    permutation, :data:`SIG_EMPTY` where the term has no postings.
+    ``perm_tile`` permutations are hashed a pass; it bounds the pass's
+    memory and changes no result."""
+    return signatures_from_packed(packed, a, b, perm_tile=perm_tile)
 
 
 def block_signatures(packed: torch.Tensor, slots, a: np.ndarray,
-                     b: np.ndarray) -> torch.Tensor:
+                     b: np.ndarray, *,
+                     perm_tile: int = PERM_CHUNK) -> torch.Tensor:
     """Signatures restricted to one ingest block's doc ``slots``.
 
     Gathers only the block's word rows off the live bitmap, keeps the
@@ -160,7 +178,7 @@ def block_signatures(packed: torch.Tensor, slots, a: np.ndarray,
     own_t = torch.from_numpy(own.view(np.int32)).to(dev)
     rows = packed[torch.from_numpy(uw).to(dev)] & own_t[:, None]
     set_slots, terms = _set_bits(rows, torch.from_numpy(uw * 32).to(dev))
-    return _hash_min(set_slots, terms, v, a, b)
+    return _hash_min(set_slots, terms, v, a, b, perm_tile)
 
 
 def _umin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -263,7 +263,7 @@ def context_state(ctx) -> Tuple[Dict[str, np.ndarray], dict]:
 
 
 def context_from_state(arrays: Dict[str, np.ndarray], meta: dict, *,
-                       device="cuda", cold_store=None):
+                       device="cuda", mesh=None, cold_store=None):
     """Rebuild a port QueryContext from (arrays, meta), as written by
     :func:`context_state` here or ``repro.core.snapshot.context_state``:
     ``packed`` (uint32), ``doc_freq``, ``block_NNNN``, ``scope_NNNN``,
@@ -274,14 +274,16 @@ def context_from_state(arrays: Dict[str, np.ndarray], meta: dict, *,
     ``cold_store`` receives the state's cold payloads (a fresh dict when
     omitted and the state has any); a key whose payload is not among
     ``arrays`` must already be in ``cold_store`` (say a directory the
-    other package spilled to)."""
+    other package spilled to).  ``mesh`` is a restore-time choice, not
+    state: one snapshot restores onto one device or onto any query mesh
+    (whose first device ``device`` must name), with identical answers."""
     from repro_torch.core.query_context import QueryContext
     dev = resolve_device(device)
     index = PackedIndex(
         from_uint32(arrays["packed"], dev),
         torch.from_numpy(np.array(arrays["doc_freq"], np.int32)).to(dev),
         int(meta["n_docs"]))
-    ctx = QueryContext(index, device=dev)
+    ctx = QueryContext(index, device=dev, mesh=mesh)
     ctx._dtype = str(meta.get("dtype", "bfloat16"))
     ctx._blocks = deque(np.asarray(arrays[f"block_{i:04d}"], np.int64)
                         for i in range(int(meta["n_blocks"])))
@@ -338,10 +340,8 @@ def load_context(path: str, *, device="cuda", cold_store=None,
                  verify: bool = True, mesh=None):
     """Restore the CURRENT snapshot's QueryContext onto ``device`` (bare
     context snapshots and ``CoocIndex`` snapshots alike: the context
-    payload is identical).  ``mesh=`` is not ported and raises."""
-    if mesh is not None:
-        from repro_torch.core.query_context import not_ported
-        raise not_ported("restore onto a mesh (mesh=)")
+    payload is identical), or onto the query ``mesh`` whose first device
+    it is."""
     arrays, meta = read_snapshot(path, verify=verify)
-    return context_from_state(arrays, meta, device=device,
+    return context_from_state(arrays, meta, device=device, mesh=mesh,
                               cold_store=cold_store)

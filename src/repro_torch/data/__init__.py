@@ -1,6 +1,10 @@
-"""Host-side data: tokeniser, the synthetic CSL corpus and the seeded
-recsys batches."""
-from repro_torch.data.corpus import synthetic_csl  # noqa: F401
+"""Host-side data: tokeniser, the synthetic CSL corpus and its statistics,
+and the seeded recsys batches."""
+from repro_torch.data.corpus import (  # noqa: F401
+    CorpusStats,
+    corpus_stats,
+    synthetic_csl,
+)
 from repro_torch.data.tokenizer import (  # noqa: F401
     DEFAULT_STOPWORDS,
     build_lexicon,

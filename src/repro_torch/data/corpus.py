@@ -1,5 +1,6 @@
-"""Synthetic CSL-like corpus, copied from ``repro.data.corpus``: the same
-numpy draws from the same seed give the same documents.
+"""Synthetic CSL-like corpus and its statistics, copied from
+``repro.data.corpus``: the same numpy draws from the same seed give the
+same documents.
 
 The paper's CSL corpus has 396,209 papers with keyword lists; the
 synthetic one keeps its statistical shape (paper Fig. 6): Poisson document
@@ -7,9 +8,20 @@ lengths and Zipf term frequencies.
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import List, Sequence
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class CorpusStats:
+    n_docs: int
+    vocab_size: int
+    mean_doc_len: float
+    max_df: int
+    median_df: float
+    frac_df_below_50: float
 
 
 def synthetic_csl(n_docs: int, vocab_size: int, *, mean_len: float = 12.0,
@@ -29,3 +41,21 @@ def synthetic_csl(n_docs: int, vocab_size: int, *, mean_len: float = 12.0,
         docs.append(draws[off:off + ln].tolist())
         off += ln
     return docs
+
+
+def corpus_stats(docs: Sequence[Sequence[int]], vocab_size: int) -> CorpusStats:
+    df = np.zeros(vocab_size, np.int64)
+    lens = np.zeros(len(docs), np.int64)
+    for i, d in enumerate(docs):
+        u = np.unique(d)
+        df[u] += 1
+        lens[i] = len(d)
+    nz = df[df > 0]
+    return CorpusStats(
+        n_docs=len(docs),
+        vocab_size=vocab_size,
+        mean_doc_len=float(lens.mean()),
+        max_df=int(df.max()),
+        median_df=float(np.median(nz)) if nz.size else 0.0,
+        frac_df_below_50=float((nz < 50).mean()) if nz.size else 0.0,
+    )

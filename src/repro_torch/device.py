@@ -20,3 +20,13 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` resolved as :func:`resolve_device` does, with its index:
+    ``"cuda"`` is the current card, so ``"cuda"`` and ``"cuda:0"`` compare
+    equal on a one-card host."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -8,11 +8,14 @@ fallback: a kernel that fails to build or launch raises.
 :data:`LAUNCHES` counts the kernel launches of each wrapper (a wrapper adds
 one where it launches its kernel and nowhere else), so a run can show that
 its main path went through the kernels.  It is process-wide on purpose: it
-counts the launches of the process's one set of kernels.
+counts the launches of the process's one set of kernels, from any thread
+(the server's lanes step from executor threads), so every update holds
+:data:`_COUNTS_LOCK`.
 """
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Dict, Optional
 
 import torch
 
@@ -26,12 +29,22 @@ LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0,
 #: ``"tma"`` (wgmma fed by TMA, the main path) or ``"bytes"`` (the
 #: mma.sync fallback for operands TMA cannot describe)
 COOCCUR_PATHS: Dict[str, int] = {"tma": 0, "bytes": 0}
+_COUNTS_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, COOCCUR_PATHS):
-        for name in counts:
-            counts[name] = 0
+    with _COUNTS_LOCK:
+        for counts in (LAUNCHES, COOCCUR_PATHS):
+            for name in counts:
+                counts[name] = 0
+
+
+def _count(name: str, path: Optional[str] = None) -> None:
+    """One launch of ``name`` (and of the co-occurrence ``path``)."""
+    with _COUNTS_LOCK:
+        LAUNCHES[name] += 1
+        if path is not None:
+            COOCCUR_PATHS[path] += 1
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -51,7 +64,7 @@ def postings_counts(masks: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     if _on_cuda(masks):
         from repro_torch.kernels.postings import postings_counts_cuda
         out = postings_counts_cuda(masks, packed)
-        LAUNCHES["postings_counts"] += 1
+        _count("postings_counts")
         return out
     return ref.postings_counts_ref(masks, packed)
 
@@ -88,7 +101,7 @@ def level_step(masks: torch.Tensor, packed: torch.Tensor,
         from repro_torch.kernels.level_step import level_step_cuda
         w, i = level_step_cuda(masks, packed, terms, valid, vis,
                                v=v, k=k_eff, dedup=dedup)
-        LAUNCHES["level_step"] += 1
+        _count("level_step")
     else:
         w, i = ref.level_step_ref(masks, packed, terms, valid, vis,
                                   v=v, k=k_eff, dedup=dedup)
@@ -128,10 +141,56 @@ def cooccur_counts(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
         from repro_torch.kernels.cooccur import cooccur_counts_cuda
         out, path = cooccur_counts_cuda(x_l.t(), x_r.t())
         if path is not None:
-            LAUNCHES["cooccur_counts"] += 1
-            COOCCUR_PATHS[path] += 1
+            _count("cooccur_counts", path)
         return out
     return ref.cooccur_counts_ref(x_l, x_r)
+
+
+def cooccur_counts_sharded(x_l: torch.Tensor, x_r: torch.Tensor, *,
+                           mesh) -> torch.Tensor:
+    """:func:`cooccur_counts` under a query mesh
+    (:func:`repro_torch.core.distributed.make_cooc_mesh`): the kernel runs
+    once per shard on that shard's operands, on its device, and the
+    partials merge on the mesh's first device, bit for bit.  Mirrors
+    ``repro.kernels.ops.cooccur_counts_sharded``.
+
+    Term mesh ("model" axis): ``x_r``'s columns split into contiguous
+    ranges and the (Vl, Vr/n) blocks concatenate.  Doc mesh ("data"
+    axis): both operands' doc rows split (at multiples of 32 docs, so
+    every shard's operands keep the kernel's 16-byte alignment) and the
+    int32 partial products sum.  Nothing is padded or copied on the
+    first device."""
+    from repro_torch.core.distributed import (
+        _placed,
+        mesh_device,
+        n_shards,
+        shard_kind,
+        shard_ranges,
+    )
+    n_data = mesh.shape.get("data", 1)
+    n_model = mesh.shape.get("model", 1)
+    if n_data > 1 and n_model > 1:
+        raise ValueError("cooccur_counts_sharded shards one axis at a time; "
+                         f"got mesh shape {dict(mesh.shape)}")
+    n, dev0 = n_shards(mesh), mesh_device(mesh)
+    devs = list(mesh.devices.flat)
+    d, vr = x_r.shape
+    if shard_kind(mesh) == "terms":
+        return torch.cat([
+            cooccur_counts(_placed(x_l, dev),
+                           _placed(x_r[:, lo:hi], dev)).to(dev0)
+            for dev, (lo, hi) in zip(devs, shard_ranges(vr, n)) if hi > lo],
+            dim=1)
+    out = None
+    for dev, (lo, hi) in zip(devs, shard_ranges(d, n, 32)):
+        if hi > lo:
+            c = cooccur_counts(_placed(x_l[lo:hi], dev),
+                               _placed(x_r[lo:hi], dev)).to(dev0)
+            out = c if out is None else out + c
+    if out is None:               # no docs: every count is zero
+        out = torch.zeros((x_l.shape[1], vr), dtype=torch.int32,
+                          device=dev0)
+    return out
 
 
 def cooccur_gemm(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
@@ -150,7 +209,7 @@ def dot_interaction(x: torch.Tensor) -> torch.Tensor:
     if _on_cuda(x):
         from repro_torch.kernels.dot_interaction import dot_interaction_cuda
         out = dot_interaction_cuda(x)
-        LAUNCHES["dot_interaction"] += 1
+        _count("dot_interaction")
         return out
     return ref.dot_interaction_ref(x)
 
@@ -177,6 +236,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
         from repro_torch.kernels.flash_decode import flash_decode_cuda
         ln = ref.decode_lengths(length, b, s, q.device)
         out = flash_decode_cuda(q, k, v, ln, chunk)
-        LAUNCHES["flash_decode"] += 1
+        _count("flash_decode")
         return out
     return ref.flash_decode_ref(q, k, v, length, chunk=chunk)

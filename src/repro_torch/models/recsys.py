@@ -36,7 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
 _NOT_PORTED = ("the {} interaction ({}) is not ported yet: DeepFM, SASRec "
-               "and BERT4Rec are ROADMAP.md §1 item 8")
+               "and BERT4Rec wait for the side models, ROADMAP.md §1")
 
 
 def _require_dot(cfg: RecSysConfig) -> None:

@@ -34,7 +34,7 @@ from repro_torch.core.query import (
     get_count_method,
 )
 from repro_torch.core.query_context import QueryContext
-from repro_torch.device import resolve_device
+from repro_torch.device import canonical_device, resolve_device
 from repro_torch.serve.metrics import percentile_ms
 
 
@@ -140,7 +140,7 @@ class CoocEngine:
                 f"compile_budget must be >= 1 or None, got {compile_budget}")
         if isinstance(ctx, PackedIndex):
             ctx = QueryContext(ctx, device=dev)
-        if ctx.device != dev:
+        if canonical_device(ctx.device) != canonical_device(dev):
             raise ValueError(f"context lives on {ctx.device}, engine asked "
                              f"for {dev}")
         self.ctx: QueryContext = ctx
@@ -186,7 +186,7 @@ class CoocEngine:
             return fn
         fn = functools.partial(bfs_construct_batch, depth=key.depth,
                                topk=key.topk, beam=key.beam, dedup=key.dedup,
-                               method=key.method)
+                               method=key.method, mesh=self.ctx.mesh)
         self._executors[exec_key] = fn
         if self.compile_budget is not None:
             while len(self._executors) > self.compile_budget:
@@ -258,7 +258,7 @@ class CoocEngine:
         for i, req in enumerate(admitted):
             seeds[i] = req.spec.seed_row()
         net = self._executor(key)(
-            self.ctx.index, torch.from_numpy(seeds).to(self.ctx.device),
+            self.ctx, torch.from_numpy(seeds).to(self.ctx.device),
             operands=self.ctx.operands(key.method), scope_mask=scope_mask)
         host = torch.stack([net.src, net.dst, net.weight,
                             net.valid.to(torch.int32)]).cpu().numpy()

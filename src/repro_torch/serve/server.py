@@ -215,8 +215,9 @@ class CoocServer:
         restored bit-exactly onto ``device`` and the server is ready to
         serve the moment ``start()`` returns, instead of re-ingesting the
         corpus from raw text.  Runs on the card unless ``device="cpu"``;
-        without a card it raises before reading the snapshot.  ``mesh=``
-        is not ported and raises, as :func:`load_context` does."""
+        without a card it raises before reading the snapshot.  ``mesh``
+        restores the context onto a query mesh (whose first device
+        ``device`` names): every lane's engine then serves sharded."""
         dev = resolve_device(device)
         ctx = load_context(path, device=dev, mesh=mesh,
                            cold_store=cold_store, verify=verify)

@@ -108,14 +108,21 @@ def test_rejected_batch_leaves_no_trace():
 
 
 def test_unported_surfaces_raise():
-    """Meshes are not ported: the constructor's and the restore's
-    ``mesh=`` / ``devices=`` raise (snapshots and ``mode="approx"`` are
-    ported, ``tests/test_torch_snapshot.py``, ``tests/test_torch_approx.py``)."""
-    for kw in ({"mesh": object()}, {"devices": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CoocIndex(device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CoocIndex.load("somewhere", device="cpu", **kw)
+    """Meshes are ported (``tests/test_torch_distributed.py``): what the
+    constructor and the restore refuse is a mesh that is not a
+    ``CoocMesh``, both ``mesh=`` and ``devices=``, and a device count
+    with no card to count."""
+    with pytest.raises(TypeError, match="CoocMesh"):
+        CoocIndex(device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        CoocIndex(device="cpu", mesh=object(), devices=["cpu"])
+    with pytest.raises(ValueError, match="not both"):
+        CoocIndex.load("somewhere", device="cpu", mesh=object(),
+                       devices=["cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            CoocIndex(device="cpu", devices=2)
+    assert CoocIndex(device="cpu", devices=["cpu"] * 2).mesh is not None
 
 
 _ISOLATION = """

@@ -107,9 +107,17 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert launches["cooccur_counts"] == 1
     assert ctx.unpack_count == 1
     assert exact.max_edges == 256 * 16 and exact_s > 0
-    smoke.phase_approx(dev, ctx, hidx, exact, exact_s)
+    approx = smoke.phase_approx(dev, ctx, hidx, exact, exact_s)
     assert ctx.unpack_count == 1        # "gemm" approx reuses x_dense
     kernels = smoke.phase_kernels(dev, ctx, seeds, launches)
+    mesh = smoke.phase_mesh(dev, ctx, seeds, exact, exact_s, *approx)
+    # 2 batches x depth 3 x 4 shards: term mesh "fused" (kernel 2) and
+    # "pallas" (kernel 1), doc mesh both (kernel 1); 256 terms: "rows"
+    # one launch on each of the two shards that hold row blocks, "cols"
+    # and the doc split one group on each of 4 shards
+    assert mesh["level_step"] == 24
+    assert mesh["cooccur_counts"] == 2 + 4 + 4
+    assert mesh["postings_counts"] >= 3 * 24
     assert [k["name"] for k in kernels] == ["postings_counts", "level_step",
                                             "cooccur_counts"]
     assert [k["launches"] for k in kernels] == [6, 6, 1]
@@ -131,6 +139,23 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     # the quickstart snapshot, and the approximate CSL sweep both ways
     assert "[strings] snapshot_blobs=" in out
     assert "loaded_equal=True approx_equal_cpu=True" in out
+    assert ("[strings] mesh_shards=4 mesh_kinds=terms,docs mesh_oracle=True "
+            "mesh_loaded_equal=True mesh_served_equal=16 "
+            "one_shard_mesh=True") in out
+    for kind in ("terms", "docs"):
+        for method in ("fused", "pallas"):
+            assert (f"[mesh] mesh={kind} shards=4 method={method} "
+                    "queries=16 batches=2 ") in out
+            assert "launches_per_batch_per_shard=3.00 " in out
+    assert "[mesh] mesh=terms shards=4 strategy=rows " in out
+    assert "[mesh] mesh=terms shards=4 strategy=cols " in out
+    assert "[mesh] mesh=docs shards=4 strategy=cols " in out
+    assert "[mesh] mesh=terms shards=4 mode=approx " in out
+    assert "signatures_identical=True" in out
+    for what in ("none", "terms", "docs"):
+        for method in ("fused", "pallas"):
+            assert (f"[mesh] profile={what}_{method}_batch "
+                    "device_busy_ms=not-measured") in out
     assert "[approx] method=pallas k=16 " in out
     assert "[approx] method=gemm k=16 " in out
     assert "[approx] identical=True sig_s=" in out

@@ -1,0 +1,362 @@
+"""The public surface of ``repro_torch.core`` (and of the port's configs,
+data and kernel wrappers) against the reference's, and the host-side
+references of ``repro.core``.
+
+Output parity tests elsewhere compare what the port computes; these
+compare what it offers: every name ``repro.core`` exports, every keyword
+parameter of a shared function or class (except the documented
+departures), the configs field for field, and the surface faults found by
+a ``dir()`` / ``inspect.signature`` diff of the two packages, each with
+the probe that showed it.  Exact equality throughout.
+"""
+import dataclasses
+import inspect
+import re
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import repro.configs as JC  # noqa: E402
+import repro.core as J  # noqa: E402
+import repro.data as JD  # noqa: E402
+import repro.kernels.ops as JO  # noqa: E402
+import repro_torch.configs as TC  # noqa: E402
+import repro_torch.core as T  # noqa: E402
+import repro_torch.data as TD  # noqa: E402
+from repro.api import CoocIndex as JIndex  # noqa: E402
+from repro_torch.api import CoocIndex  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: keyword parameters the port renames on purpose (ROADMAP.md §3,
+#: "Deliberate departures"): the reference's dense dtype is the port's
+#: device (its x_dense is int8 whatever the dtype)
+DEPARTURES = {"dtype": "device"}
+
+#: names of the reference's data, configs and kernel-wrapper modules the
+#: port lacks because they serve the side models (ROADMAP.md §1)
+SIDE_MODELS = {
+    "configs": {"GNNConfig", "LMConfig"},
+    "data": {"build_csr", "gnn_synthetic_graph", "lm_batch",
+             "sample_subgraph", "sampler", "subgraph_sizes"},
+    "ops": {"decode_attn"},
+}
+#: the reference's Pallas and XLA backends and its module imports: the
+#: port's wrappers pick the CUDA kernel or its plain version by device
+BACKENDS = {"cooccur_gemm_pallas", "dot_interaction_pallas",
+            "flash_decode_pallas", "flash_decode_xla", "level_step_pallas",
+            "level_step_topk_xla", "pallas_backend", "postings_counts_pallas",
+            "functools", "jax", "jnp"}
+
+DOCS = [[0, 1], [1, 2], [0, 2, 3]]
+
+
+def _public(module):
+    return {n for n in dir(module) if not n.startswith("_")}
+
+
+def _params(obj):
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return [p.name for p in sig.parameters.values()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _slots(net):
+    return np.stack([np.asarray(getattr(net, f)).astype(np.int64)
+                     for f in ("src", "dst", "weight", "valid")])
+
+
+# ---------------------------------------------------------------------------
+# surfaces
+# ---------------------------------------------------------------------------
+
+
+def test_every_name_of_repro_core_is_in_the_port():
+    assert _public(J) - _public(T) == set()
+
+
+def test_keyword_parameters_of_shared_names_match():
+    """Every parameter of a function or class ``repro.core`` exports, and
+    of the public methods of its classes, exists in the port under the
+    same name, but for :data:`DEPARTURES`."""
+    missing = []
+    for name in sorted(_public(J)):
+        ref, port = getattr(J, name), getattr(T, name)
+        if inspect.ismodule(ref):
+            continue
+        pairs = [(name, ref, port)]
+        if inspect.isclass(ref):
+            pairs += [(f"{name}.{m}", getattr(ref, m), getattr(port, m, None))
+                      for m, v in vars(ref).items()
+                      if (not m.startswith("_") or m == "__init__")
+                      and (callable(v) or isinstance(v, classmethod))]
+        for label, r, p in pairs:
+            if p is None:
+                missing.append((label, "absent"))
+                continue
+            pr, pp = _params(r), _params(p)
+            if pr is None or pp is None:
+                continue
+            gone = [a for a in pr if a not in pp
+                    and DEPARTURES.get(a) not in pp]
+            if gone:
+                missing.append((label, gone))
+    assert missing == []
+
+
+def test_the_other_gaps_are_the_side_models_as_roadmap_lists_them():
+    gaps = {"configs": _public(JC) - _public(TC),
+            "data": _public(JD) - _public(TD),
+            "ops": _public(JO) - _public(ops)}
+    assert gaps["configs"] == SIDE_MODELS["configs"]
+    assert gaps["data"] == SIDE_MODELS["data"]
+    assert gaps["ops"] - BACKENDS == SIDE_MODELS["ops"]
+    assert {"BaseConfig", "CoocConfig"} <= _public(TC)
+    assert "cooccur_counts_sharded" in _public(ops)
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    item = roadmap[roadmap.index("**The seed's side models.**"):]
+    item = item[:item.index("### 2.")]
+    for name in sorted(set().union(*SIDE_MODELS.values())):
+        assert re.search(rf"\b{name}\b", item), name
+
+
+# ---------------------------------------------------------------------------
+# the four surface faults and the fused counts, each with its probe
+# ---------------------------------------------------------------------------
+
+
+def test_query_context_mesh_probe():
+    """Fault 1: the reference's ``QueryContext.mesh``."""
+    j_ctx = J.QueryContext.from_docs([[0, 1], [1, 2]], 4)
+    ctx = T.QueryContext.from_docs([[0, 1], [1, 2]], 4, device="cpu")
+    assert ctx.mesh is None and j_ctx.mesh is None
+    mesh = T.make_cooc_mesh(devices=["cpu"] * 2)
+    assert T.QueryContext.from_docs([[0, 1]], 4, device="cpu",
+                                    mesh=mesh).mesh == mesh
+    idx = CoocIndex(device="cpu", devices=["cpu"] * 2)
+    assert idx.mesh == mesh and idx.mesh is idx.ctx.mesh
+    assert CoocIndex(device="cpu").mesh is None is JIndex().mesh
+
+
+def test_materialize_col_tile_probe():
+    """Fault 2: ``materialize(col_tile=)`` changes no result and keys the
+    cache as the reference's does."""
+    j_ctx = J.QueryContext.from_docs(DOCS, 4)
+    ctx = T.QueryContext.from_docs(DOCS, 4, device="cpu")
+    want = J.materialize(j_ctx, k=2, col_tile=128)
+    assert np.asarray(want.weight).tolist() == [1] * 8
+    for method in ("gemm", "pallas"):
+        net = T.materialize(ctx, k=2, col_tile=128, method=method)
+        np.testing.assert_array_equal(
+            _slots(net), _slots(J.materialize(j_ctx, k=2, col_tile=128,
+                                              method=method)))
+        # keyed by the tile clamped to the vocabulary's 128 columns
+        assert T.materialize(ctx, k=2, col_tile=256, method=method) is net
+        assert T.materialize(ctx, k=2, col_tile=64, method=method) is not net
+    with pytest.raises(ValueError, match="col_tile"):
+        T.materialize(ctx, k=2, col_tile=0, method="pallas")
+    with pytest.raises(ZeroDivisionError):
+        J.materialize(j_ctx, k=2, col_tile=0, method="pallas")
+
+
+def test_block_signatures_perm_tile_probe():
+    """Fault 2: ``block_signatures(perm_tile=)`` tiles the permutations
+    and changes no result; a tile below 1 is clamped to 1 as the
+    reference clamps it."""
+    idx = T.pack_docs(DOCS, 4, device="cpu")
+    a, b = T.hash_coefficients(20, 3)
+    want = np.asarray(J.block_signatures(
+        J.pack_docs(DOCS, 4).packed, [0, 2], a, b, perm_tile=7))
+    for tile in (7, 16, 0, 64):
+        np.testing.assert_array_equal(
+            T.to_uint32(T.block_signatures(idx.packed, [0, 2], a, b,
+                                           perm_tile=tile)), want)
+        np.testing.assert_array_equal(
+            T.to_uint32(T.minhash_signatures(idx.packed, a, b,
+                                             perm_tile=tile)),
+            np.asarray(J.minhash_signatures(J.pack_docs(DOCS, 4).packed,
+                                            jnp.asarray(a), jnp.asarray(b))))
+
+
+def test_x_dense_legacy_spelling_probe():
+    """Fault 3: ``bfs_construct(x_dense=)``, the port's int8 operand."""
+    j_ctx = J.QueryContext.from_docs(DOCS, 4)
+    ctx = T.QueryContext.from_docs(DOCS, 4, device="cpu")
+    want = J.bfs_construct(j_ctx.index, jnp.asarray([0], jnp.int32),
+                           depth=1, topk=2, beam=2, method="gemm",
+                           x_dense=j_ctx.x_dense())
+    assert np.asarray(want.weight).tolist() == [1, 1, 0, 0]
+    got = T.bfs_construct(ctx.index, torch.tensor([0]), depth=1, topk=2,
+                          beam=2, method="gemm", x_dense=ctx.x_dense())
+    np.testing.assert_array_equal(_slots(got), _slots(want))
+    batch = T.bfs_construct_batch(ctx.index, torch.tensor([[0], [2]]),
+                                  depth=1, topk=2, beam=2, method="gemm",
+                                  x_dense=ctx.x_dense())
+    np.testing.assert_array_equal(
+        _slots(batch), _slots(J.bfs_construct_batch(
+            j_ctx.index, jnp.asarray([[0], [2]], jnp.int32), depth=1,
+            topk=2, beam=2, method="gemm", x_dense=j_ctx.x_dense())))
+    x = ctx.x_dense()
+    for bad in (x.to(torch.bfloat16), x.contiguous(), x[:, :2]):
+        with pytest.raises(ValueError, match="int8"):
+            T.bfs_construct(ctx.index, torch.tensor([0]), depth=1, topk=2,
+                            beam=2, method="gemm", x_dense=bad)
+
+
+def test_cooccur_csl_config_is_a_base_config_probe():
+    """Fault 4: ``cooccur-csl`` is a ``BaseConfig`` with its family and
+    shapes; it and ``dlrm-rm2`` equal the reference's field for field."""
+    for arch in ("cooccur-csl", "dlrm-rm2"):
+        cfg, jcfg = TC.get_config(arch), JC.get_config(arch)
+        assert isinstance(cfg, TC.BaseConfig)
+        assert [f.name for f in dataclasses.fields(cfg)] == [
+            f.name for f in dataclasses.fields(jcfg)]
+        for f in dataclasses.fields(jcfg):
+            got, want = getattr(cfg, f.name), getattr(jcfg, f.name)
+            if f.name == "shapes":
+                got = [(s.name, s.kind, s.dims) for s in got]
+                want = [(s.name, s.kind, s.dims) for s in want]
+            assert got == want, (arch, f.name)
+    cfg = TC.get_config("cooccur-csl")
+    assert isinstance(cfg, TC.CoocConfig) and cfg.family == "cooccur"
+    assert [s.name for s in cfg.shapes] == ["build_full", "query_bfs_d3",
+                                            "query_batch", "stream_ingest"]
+    assert cfg.shape("query_batch")["n_queries"] == 256
+    assert cfg.n_words == JC.get_config("cooccur-csl").n_words == 12382
+    with pytest.raises(KeyError, match="unknown shape"):
+        cfg.shape("nope")
+    assert [f.name for f in dataclasses.fields(TC.BaseConfig)] == [
+        f.name for f in dataclasses.fields(JC.BaseConfig)]
+
+
+def test_fused_counts_go_through_the_postings_wrapper(monkeypatch):
+    """Repair 5: "fused"'s counts-only form (materialization, a doc
+    mesh's shards) is the postings kernel's wrapper, so a CUDA tensor
+    launches kernel 1; "popcount" stays the plain version everywhere."""
+    calls = []
+    real = ops.postings_counts
+
+    def spy(masks, packed):
+        calls.append(masks.shape)
+        return real(masks, packed)
+
+    monkeypatch.setattr(ops, "postings_counts", spy)
+    ctx = T.QueryContext.from_docs(DOCS, 4, device="cpu")
+    j_ctx = J.QueryContext.from_docs(DOCS, 4)
+    net = T.materialize(ctx, k=2, method="fused")
+    assert calls, "fused counts never reached ops.postings_counts"
+    np.testing.assert_array_equal(
+        _slots(net), _slots(J.materialize(j_ctx, k=2, method="fused")))
+    calls.clear()
+    T.materialize(ctx, k=2, method="popcount")
+    assert calls == []
+
+
+# ---------------------------------------------------------------------------
+# host references, corpus statistics, the registry view
+# ---------------------------------------------------------------------------
+
+
+def test_host_references_match():
+    rng = np.random.default_rng(5)
+    corpus = [rng.integers(0, 12, rng.integers(1, 6)).tolist()
+              for _ in range(40)]
+    x = np.zeros((40, 12), bool)
+    for d, terms in enumerate(corpus):
+        x[d, terms] = True
+    for seed in (0, 3, 7):
+        for dedup in (True, False):
+            assert T.recursive_construct_host(x, seed, 3, 3, dedup) == \
+                J.recursive_construct_host(x, seed, 3, 3, dedup)
+            assert T.bfs_construct_host(x, seed, 3, 3, 4, dedup) == \
+                J.bfs_construct_host(x, seed, 3, 3, 4, dedup)
+    np.testing.assert_array_equal(
+        T.traversal_construct_dense(torch.from_numpy(x.astype(np.int8)))
+        .numpy(),
+        np.asarray(J.traversal_construct_dense(jnp.asarray(x, jnp.float32))))
+    t_idx = T.pack_docs(corpus, 12, device="cpu")
+    j_idx = J.pack_docs(corpus, 12)
+    mask = T.and_term(t_idx, T.term_postings(t_idx, 3), 5)
+    j_mask = J.and_term(j_idx, J.term_postings(j_idx, 3), 5)
+    np.testing.assert_array_equal(T.to_uint32(mask), np.asarray(j_mask))
+    assert int(T.mask_count(mask)) == int(J.mask_count(j_mask))
+    np.testing.assert_array_equal(T.doc_freq_under(t_idx, mask).numpy(),
+                                  np.asarray(J.doc_freq_under(j_idx, j_mask)))
+    assert T.mask_count(mask).dtype == torch.int32
+
+
+def test_corpus_stats_match():
+    docs = TD.synthetic_csl(500, 300, seed=2)
+    assert dataclasses.asdict(TD.corpus_stats(docs, 300)) == \
+        dataclasses.asdict(JD.corpus_stats(docs, 300))
+    assert dataclasses.astuple(TD.corpus_stats([[1]], 3)) == \
+        dataclasses.astuple(JD.corpus_stats([[1]], 3))
+
+
+def test_count_methods_view_is_live_like_the_reference():
+    assert set(T.COUNT_METHODS) == set(J.COUNT_METHODS)
+    assert len(T.COUNT_METHODS) == len(J.COUNT_METHODS)
+    for name in ("gemm", "popcount", "pallas"):
+        assert T.COUNT_METHODS[name] == J.COUNT_METHODS[name]
+    # "fused" reads the index's own postings (ROADMAP.md §3 departures)
+    assert T.COUNT_METHODS["fused"] == ()
+    with pytest.raises(KeyError):
+        T.COUNT_METHODS["nope"]
+    T.register_count_method("surface_probe", ("x_dense",),
+                            lambda i, m, o: None)
+    try:
+        assert T.COUNT_METHODS["surface_probe"] == ("x_dense",)
+    finally:
+        T.unregister_count_method("surface_probe")
+    assert "surface_probe" not in T.COUNT_METHODS
+
+
+# ---------------------------------------------------------------------------
+# launch counters under threads
+# ---------------------------------------------------------------------------
+
+
+def test_launch_counts_lose_nothing_under_threads(monkeypatch):
+    """The server's lanes launch from executor threads: with the kernel
+    stubbed out, 8 threads' launches through the wrapper are all counted
+    (an unguarded ``+=`` on the shared dict loses some)."""
+    from repro_torch.kernels import postings
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(postings, "postings_counts_cuda",
+                        lambda masks, packed: masks)
+    masks = torch.zeros((1, 1), dtype=torch.int32)
+    n_threads, per = 8, 20000
+    ops.reset_launches()
+    start = threading.Barrier(n_threads)
+
+    def work():
+        start.wait()
+        for _ in range(per):
+            ops.postings_counts(masks, masks)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    try:
+        assert ops.LAUNCHES["postings_counts"] == n_threads * per
+    finally:
+        ops.reset_launches()

@@ -477,3 +477,65 @@ def test_dlrm_serving_on_the_card_matches_the_cpu(cuda):
     assert ops.LAUNCHES["dot_interaction"] == before + 1
     want = R.serve_fn(cfg, cpu_model, R.as_batch(batch, "cpu"))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _mesh_matches_one_device(cuda, mesh):
+    """Every method's batch and the whole network (both strategies, exact
+    and approx) on ``mesh`` equal the unsharded context's on the card,
+    with one kernel launch a level per shard, and kernel 3 takes its TMA
+    path on the shards' operands."""
+    from repro_torch.core import bfs_construct_batch, materialize
+    n = mesh.size
+    docs = synthetic_csl(4096, 1000, seed=6)
+    ctx = QueryContext.from_docs(docs, 1000, device=cuda)
+    mctx = QueryContext(ctx.index, device=cuda, mesh=mesh)
+    seeds = torch.tensor([[3, 40], [7, -1], [999, 12], [0, -1]], device=cuda)
+    plan = dict(depth=3, topk=8, beam=8)
+    docs_mesh = mesh.shape["data"] > 1
+    for method, counter in (("fused", "level_step"),
+                            ("pallas", "postings_counts"),
+                            ("gemm", None), ("popcount", None)):
+        if docs_mesh and method == "fused":
+            counter = "postings_counts"
+        want = bfs_construct_batch(ctx, seeds, method=method, **plan)
+        ops.reset_launches()
+        got = bfs_construct_batch(mctx, seeds, method=method, **plan)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), method
+        if counter is not None:
+            assert ops.LAUNCHES[counter] == plan["depth"] * n, method
+    want = materialize(ctx, k=8, method="pallas", use_cache=False)
+    for strategy in ("rows", "cols"):
+        ops.reset_launches()
+        got = materialize(mctx, k=8, method="pallas", shard_strategy=strategy,
+                          use_cache=False)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), strategy
+        assert ops.COOCCUR_PATHS["bytes"] == 0 and ops.COOCCUR_PATHS["tma"]
+    got = materialize(mctx, k=8, mode="approx", method="pallas",
+                      num_perm=64, use_cache=False)
+    want = materialize(ctx, k=8, mode="approx", method="pallas",
+                       num_perm=64, use_cache=False)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], want[:4]))
+    assert got.stats == want.stats
+    assert torch.equal(mctx.term_signatures(num_perm=64),
+                       ctx.term_signatures(num_perm=64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["terms", "docs"])
+def test_mesh_on_the_card_matches_one_device(cuda, kind):
+    """Four shards of the one card."""
+    from repro_torch.core import make_cooc_mesh
+    _mesh_matches_one_device(cuda, make_cooc_mesh(devices=[cuda] * 4,
+                                                  shard=kind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["terms", "docs"])
+def test_mesh_across_cards_matches_one_device(cuda, kind):
+    """One shard a card, over every visible card (the cross-device
+    copies and merges)."""
+    from repro_torch.core import make_cooc_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    _mesh_matches_one_device(torch.device("cuda", 0),
+                             make_cooc_mesh(shard=kind))

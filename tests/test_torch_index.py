@@ -229,10 +229,15 @@ def test_context_vocab_grow_and_shrink():
 
 
 def test_context_refuses_unported_modes():
+    """Every mode of the reference's context is ported; what it refuses
+    now is a mesh that is not a ``CoocMesh``, a device that is not the
+    mesh's first, and a mesh that mixes CPU and CUDA devices."""
     idx = T.pack_docs([[0]], 2, device="cpu")
-    for kw in ({"mesh": object()},):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.QueryContext(idx, device="cpu", **kw)
+    with pytest.raises(TypeError, match="CoocMesh"):
+        T.QueryContext(idx, device="cpu", mesh=object())
+    ctx = T.QueryContext(idx, device="cpu",
+                         mesh=T.make_cooc_mesh(devices=["cpu"] * 2))
+    assert ctx.mesh is not None and ctx.device == torch.device("cpu")
 
 
 def test_context_from_state_answers_like_the_reference():

@@ -222,6 +222,8 @@ def test_argument_checks_and_unported_modes():
             materialize(ctx, **kw)
     with pytest.raises(ValueError, match="QueryContext"):
         materialize(ctx.index, scope="a")
-    for kw in ({"mesh": object()}, {"shard_strategy": "rows"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            materialize(ctx, **kw)
+    with pytest.raises(TypeError, match="CoocMesh"):
+        materialize(ctx, mesh=object())
+    # off a mesh the strategy is ignored, as in the reference
+    _same_net(materialize(ctx, shard_strategy="rows", use_cache=False),
+              materialize(ctx, use_cache=False))

@@ -656,7 +656,7 @@ def test_from_snapshot_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
         CoocServer.from_snapshot(path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CoocServer.from_snapshot(str(tmp_path / "nothing-here"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="CoocMesh"):
         CoocServer.from_snapshot(path, device="cpu", mesh=object())
     srv = CoocServer.from_snapshot(path, device="cpu")
     assert srv.ctx.n_docs == len(WS_DOCS)

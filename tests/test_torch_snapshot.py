@@ -177,7 +177,7 @@ class TestContextRoundTrip:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError):
             T.load_context(str(tmp_path / "snap"))
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="CoocMesh"):
             T.load_context(str(tmp_path / "snap"), device="cpu",
                            mesh=object())
 
@@ -306,12 +306,13 @@ class TestCoocIndexRoundTrip:
     def test_load_refuses_what_is_not_ported_and_needs_a_card(
             self, tmp_path, monkeypatch):
         _build(TIndex, device="cpu").save(str(tmp_path / "snap"))
-        for kw in ({"mesh": object()}, {"devices": 4}):
-            with pytest.raises(NotImplementedError):
-                TIndex.load(str(tmp_path / "snap"), device="cpu", **kw)
+        with pytest.raises(TypeError, match="CoocMesh"):
+            TIndex.load(str(tmp_path / "snap"), device="cpu", mesh=object())
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError):
             TIndex.load(str(tmp_path / "snap"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TIndex.load(str(tmp_path / "snap"), device="cpu", devices=4)
 
     def test_fresh_process_round_trip(self, tmp_path):
         """A separate interpreter loads the snapshot and reproduces the
