@@ -16,8 +16,9 @@ mesh of four shards of the card, saves a streaming CSL ring on local disk
 and warm-starts the multi-tenant ``CoocServer`` from it, which serves an
 open-loop trace.
 Then it serves dlrm-rm2 at full size
-through the dot-interaction kernel and runs the flash-decode kernel at
-llama3-8b's decode cells.  Phases:
+through the dot-interaction kernel, runs the flash-decode kernel at
+llama3-8b's decode cells, and serves llama3-8b and deepseek-v2-lite-16b
+at full size through the LM decode server.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
   2. parity       the three CSL kernels == their plain versions, exact, at
@@ -109,6 +110,23 @@ llama3-8b's decode cells.  Phases:
  13. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
                   long_500k, ragged lengths (a 0 and a 1 among them) ==
                   the plain version; then timed at full lengths
+ 14. lm           the language-model serving path, which runs none of the
+                  five kernels (the reference decodes through its plain
+                  ``decode_attn``): llama3-8b (GQA, 32 layers) and
+                  deepseek-v2-lite-16b (MLA, 64 experts top-6 and 2
+                  shared) at full width and depth, bf16 weights from a
+                  seeded generator, each through
+                  ``DecodeServer(slots=8, max_len=256)`` (16 and 8
+                  prompts of 16-128 tokens from ``lm_batch``, 32 and 16
+                  new tokens); every request ends with its tokens; two
+                  requests' decode logits, step by step, == a fresh
+                  ``prefill`` over the prompt and the tokens so far
+                  (LM_DECODE_TOL); prefill and decode-step times,
+                  tokens/s, peak memory, a step's bytes bound and one
+                  profiled step; then each arch at 2 layers, fp32, on the
+                  card and through the port on the CPU: identical greedy
+                  tokens, logits within LM_CPU_TOL; no kernel launch
+                  count moves
 
 Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
@@ -116,10 +134,12 @@ imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 
 ``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
-compare kernel 4 between two trees on one card, and prints no result line.
+compare kernel 4 between two trees on one card, and prints no result line;
+``--lm-only`` runs phases 1 and 14 alone, and prints no result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -190,6 +210,27 @@ DECODE_SHAPES = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
 # row's rms.  (With randn inputs the softmax is nearly flat and |out| is
 # about sqrt(e / length), so an absolute 2e-2 would pass a kernel of zeros.)
 DECODE_TOL = {"float32": 2e-5, "bfloat16": "2^-7*|want|+1e-3*rms(row)"}
+
+# the LM serving path at full width and depth, bf16 weights from a seeded
+# generator: arch -> (requests, new tokens a request), through
+# DecodeServer(slots=LM_SLOTS, max_len=LM_MAX_LEN); prompts cut from
+# lm_batch at lengths LM_PROMPT_LENS[0]..LM_PROMPT_LENS[1]
+LM_SERVED = {"llama3-8b": (16, 32), "deepseek-v2-lite-16b": (8, 16)}
+LM_SLOTS, LM_MAX_LEN, LM_PROMPT_LENS = 8, 256, (16, 128)
+LM_CHECKED = 2                 # requests held, step by step, to a prefill
+LM_CONFIG_OVERRIDES = {}       # arch -> config fields (none: full size)
+# decode against a fresh prefill, bf16 weights, max |diff| over the
+# logits' max |logit|, every step: the two paths round their bf16 products
+# differently (batch 8 against 1, an fp32 cache against bf16 keys), and a
+# MoE token whose router input moves by that may change experts.  At
+# reduced width on the CPU, 16 layers gave at most 0.017 (llama) and 0.090
+# (deepseek); decode with interleaved-pair RoPE gave at least 0.60.
+LM_DECODE_TOL = 0.25
+# the card against the port on the CPU: the same fp32 weights at full
+# width, LM_CPU_LAYERS layers (deepseek: one dense, one MoE), two requests
+# of LM_CPU_NEW tokens; greedy tokens identical, logits within this share
+# of their max |logit| (fp32 sums in another order)
+LM_CPU_LAYERS, LM_CPU_NEW, LM_CPU_TOL = 2, 6, 1e-4
 
 QUICKSTART = [
     "graph neural networks learn node embeddings from graph structure",
@@ -2768,6 +2809,286 @@ def phase_kernel_decode(dev, launches):
     return entry
 
 
+def lm_config(arch):
+    from repro_torch.configs import get_config, replace
+    return replace(get_config(arch), **LM_CONFIG_OVERRIDES.get(arch, {}))
+
+
+def lm_prompts(cfg, n, seed):
+    """``n`` prompts cut from ``lm_batch`` at seeded lengths in
+    LM_PROMPT_LENS."""
+    from repro_torch.data import lm_batch
+    lo, hi = LM_PROMPT_LENS
+    toks = lm_batch(cfg, n, hi, step=seed, seed=seed)["tokens"]
+    lens = np.random.default_rng(seed).integers(lo, hi + 1, n)
+    return [toks[i, :lens[i]].tolist() for i in range(n)]
+
+
+def _lm_bytes(cfg, model, cache, batch, routed=None):
+    """Bytes one decode step must move: every weight once but the
+    embedding (its ``batch`` rows; the whole table where it is the head),
+    the cache read once and its new entries written, the fp32 logits
+    written.  ``routed``: per MoE layer the experts the step's tokens were
+    routed to, where only those count; else every expert counts."""
+    n = 0
+    for name, p in model.named_parameters():
+        nbytes = p.numel() * p.element_size()
+        parts = name.split(".")
+        if name == "embed":
+            row = p.shape[1] * p.element_size()
+            nbytes = nbytes if cfg.tie_embeddings else batch * row
+        elif routed is not None and parts[0] == "moe_layers" \
+                and parts[-1] in ("w1", "w2", "w3"):
+            nbytes = nbytes * routed[int(parts[1])] // p.shape[0]
+        n += nbytes
+    kv = cache["kv"]
+    entry = kv[:, :, 0].numel() * kv.element_size()
+    return n + kv.numel() * kv.element_size() + entry \
+        + batch * cfg.padded_vocab * 4
+
+
+def _routed_experts(cfg, model, cache, tok):
+    """One decode step with the MoE FFN watched: per MoE layer the number
+    of distinct experts its tokens were routed to."""
+    import torch
+    from repro_torch.models import moe, transformer as T
+    real, seen = moe.moe_ffn, []
+
+    def watch(m, x, *, top_k, **kw):
+        probs = torch.softmax(x.float() @ m.router, dim=-1)
+        seen.append(len(set(moe._top_k(probs, top_k)[1].flatten().tolist())))
+        return real(m, x, top_k=top_k, **kw)
+
+    moe.moe_ffn = watch
+    try:
+        T.decode_step(cfg, model, cache, tok)
+    finally:
+        moe.moe_ffn = real
+    return seen
+
+
+def check_decode_against_prefill(cfg, model, done, logits_by_rid):
+    """Each recorded decode step's logits of the requests in
+    ``logits_by_rid`` against a fresh ``prefill`` over the prompt and the
+    tokens served so far; raises past LM_DECODE_TOL.  Returns (worst, mean
+    relative error, steps, steps whose argmax agrees)."""
+    import torch
+    from repro_torch.models import transformer as T
+    by_rid = {r.rid: r for r in done}
+    errs, agree = [], 0
+    for rid, steps in logits_by_rid.items():
+        req = by_rid[rid]
+        if len(steps) != req.max_new_tokens - 1:
+            raise AssertionError(f"request {rid}: {len(steps)} decode steps "
+                                 f"recorded for {len(req.out_tokens)} tokens")
+        for i, got in enumerate(steps):
+            seq = req.prompt + req.out_tokens[:i + 1]
+            want, _ = T.prefill(cfg, model, torch.tensor(
+                [seq], dtype=torch.int32, device=got.device))
+            want = want[0]
+            err = float((got - want).abs().max() / want.abs().max())
+            if not err <= LM_DECODE_TOL:
+                raise AssertionError(
+                    f"{cfg.name}: decode != prefill at request {rid} step "
+                    f"{i}: max |diff| / max |logit| = {err:.4f} > "
+                    f"{LM_DECODE_TOL}")
+            errs.append(err)
+            agree += int(torch.argmax(got) == torch.argmax(want))
+    return max(errs), sum(errs) / len(errs), len(errs), agree
+
+
+def _watched_server(srv, checked):
+    """Time every prefill and decode step of ``srv`` (host clock, ending
+    in a synchronize) and record the decode logits of the requests in
+    ``checked``."""
+    import torch
+    rec = {rid: [] for rid in checked}
+    times = {"prefill": [], "decode": []}
+    decode, prefill = srv._decode, srv._prefill
+
+    def timed(kind, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def watched_decode(*args):
+        logits, cache = timed("decode", decode, *args)
+        for s, req in enumerate(srv.slot_req):
+            if req is not None and req.rid in rec:
+                rec[req.rid].append(logits[s].clone())
+        return logits, cache
+
+    srv._decode = watched_decode
+    srv._prefill = lambda *args: timed("prefill", prefill, *args)
+    return rec, times
+
+
+def _lm_serve(dev, arch, n_req, new_tokens):
+    """One arch at full width and depth through ``DecodeServer``."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DecodeServer
+    cfg = lm_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    say("lm", arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        experts=f"{cfg.n_experts}x{cfg.top_k}+{cfg.n_shared_experts}"
+        if cfg.moe else "dense", attention="mla" if cfg.mla else "gqa",
+        params=cfg.n_params(), params_gb=f"{params_gb:.3f}",
+        dtype="bfloat16", init_s=f"{init_s:.2f}")
+    srv = DecodeServer(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                       device=dev)
+    rec, times = _watched_server(srv, range(LM_CHECKED))
+    prompts = lm_prompts(cfg, n_req, seed=1)
+    for p in prompts:
+        srv.submit(p, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = srv.run_until_drained()
+    wall = time.perf_counter() - t0
+    if sorted(r.rid for r in done) != list(range(n_req)) or any(
+            len(r.out_tokens) != new_tokens or not r.done for r in done):
+        raise AssertionError(f"{arch}: {len(done)} of {n_req} requests "
+                             f"ended, not all with {new_tokens} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
+        raise AssertionError(f"{arch}: a token outside the vocabulary")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre, dec = np.array(times["prefill"]), np.array(times["decode"])
+    say("lm", arch=arch, requests=n_req, new_tokens=new_tokens,
+        slots=LM_SLOTS, max_len=LM_MAX_LEN,
+        prompt_lens=f"{min(map(len, prompts))}..{max(map(len, prompts))}",
+        prefills=len(pre), prefill_ms_p50=f"{np.percentile(pre, 50):.3f}",
+        prefill_ms_max=f"{pre.max():.3f}", decode_steps=len(dec),
+        decode_ms_p50=f"{np.percentile(dec, 50):.3f}",
+        decode_ms_p99=f"{np.percentile(dec, 99):.3f}",
+        wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{n_req * new_tokens / wall:.1f}",
+        peak_gb=f"{peak_gb:.3f}")
+    worst, mean, steps, agree = check_decode_against_prefill(
+        cfg, model, done, rec)
+    say("lm", arch=arch, decode_vs_prefill_requests=len(rec),
+        steps=steps, max_rel_err=f"{worst:.4f}", mean_rel_err=f"{mean:.4f}",
+        argmax_agree=f"{agree}/{steps}", tol=LM_DECODE_TOL)
+    del rec
+
+    # one full decode step: every slot at its last position
+    tok = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    cache = {"kv": srv.cache["kv"],
+             "length": torch.tensor(srv.slot_pos, device=dev)}
+    fields = {}
+    if cfg.moe:
+        routed = _routed_experts(cfg, model, cache, tok)
+        fields["routed_experts_per_layer"] = f"{min(routed)}..{max(routed)}"
+        fields["routed_bytes"] = _lm_bytes(cfg, model, cache, LM_SLOTS,
+                                           routed)
+        fields["routed_bound_ms"] = (
+            f"{fields['routed_bytes'] / HBM_BYTES_PER_S * 1e3:.4f}")
+    n_bytes = _lm_bytes(cfg, model, cache, LM_SLOTS)
+    head = cfg.d_model * cfg.padded_vocab
+    say("lm", arch=arch, step_bytes=n_bytes,
+        bytes_bound_ms=f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+        head_fp32_cast_gb=f"{head * 4 / 1e9:.3f}",
+        cache_gb=f"{cache['kv'].numel() * 4 / 1e9:.3f}", **fields)
+    # the profiler's own cost inflates its window, so the idle share is
+    # also given against the unprofiled step's p50
+    prof = device_profile(lambda: T.decode_step(cfg, model, cache, tok))
+    if prof is None:
+        say("lm", profile=f"{arch} decode_step", device_busy_ms="not-measured")
+    else:
+        wall_ms, busy, kernels = prof
+        p50 = float(np.percentile(dec, 50))
+        say("lm", profile=f"{arch} decode_step", wall_ms=f"{wall_ms:.4f}",
+            device_busy_ms=f"{busy:.4f}",
+            idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}",
+            idle_share_of_p50=f"{max(0.0, 1 - busy / p50):.3f}",
+            top_kernels=json.dumps(kernels))
+    del srv, model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_card_against_cpu(dev, arch):
+    """The same fp32 weights (LM_CPU_LAYERS layers at full width) served
+    on the card and by the port on the CPU: identical greedy tokens,
+    logits within LM_CPU_TOL of their max."""
+    import torch
+    from repro_torch.configs import replace
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DecodeServer
+    cfg = lm_config(arch)
+    kw = {"n_layers": LM_CPU_LAYERS}
+    if cfg.moe:
+        kw["first_dense_layers"] = 1
+    cfg = replace(cfg, **kw)
+    t0 = time.perf_counter()
+    card = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev, dtype=torch.float32)
+    host = T.LM(cfg, device="cpu", dtype=torch.float32)
+    host.load_state_dict(card.state_dict())
+    prompts = lm_prompts(cfg, 2, seed=2)
+    runs = []
+    for model, where in ((card, dev), (host, "cpu")):
+        srv = DecodeServer(cfg, model, slots=2, max_len=LM_MAX_LEN,
+                           device=where)
+        rec, _ = _watched_server(srv, (0, 1))
+        for p in prompts:
+            srv.submit(p, max_new_tokens=LM_CPU_NEW)
+        runs.append(({r.rid: r.out_tokens for r in srv.run_until_drained()},
+                     {k: [x.cpu() for x in v] for k, v in rec.items()}))
+    (tok_card, log_card), (tok_cpu, log_cpu) = runs
+    if tok_card != tok_cpu:
+        raise AssertionError(f"{arch}: card tokens {tok_card} != CPU "
+                             f"tokens {tok_cpu}")
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for rid in log_cpu for a, b in zip(log_card[rid], log_cpu[rid]))
+    if not err <= LM_CPU_TOL:
+        raise AssertionError(f"{arch}: card logits != CPU logits: max |diff|"
+                             f" / max |logit| = {err:.3g} > {LM_CPU_TOL}")
+    say("lm", arch=arch, card_vs_cpu_layers=cfg.n_layers, dtype="float32",
+        requests=len(tok_cpu), tokens_identical=True,
+        steps=sum(map(len, log_cpu.values())), max_rel_err=f"{err:.3g}",
+        tol=LM_CPU_TOL, seconds=f"{time.perf_counter() - t0:.1f}")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm(dev):
+    """llama3-8b and deepseek-v2-lite-16b at full width and depth through
+    ``DecodeServer``, decode held against prefill, then the card against
+    the CPU at two layers; the five kernels are not on this path, so no
+    launch count moves."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    say("lm", start_allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        tf32=torch.backends.cuda.matmul.allow_tf32)
+    before = dict(ops.LAUNCHES)
+    for arch, (n_req, new_tokens) in LM_SERVED.items():
+        _lm_serve(dev, arch, n_req, new_tokens)
+    for arch in LM_SERVED:
+        _lm_card_against_cpu(dev, arch)
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"the lm phase launched kernels: {before} -> "
+                             f"{ops.LAUNCHES}")
+    say("lm", kernel_launches_moved=False,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main(argv=()) -> int:
     import argparse
     import torch
@@ -2775,6 +3096,9 @@ def main(argv=()) -> int:
     ap.add_argument("--dlrm-only", action="store_true",
                     help="build the kernels, serve dlrm-rm2 and time kernel "
                          "4, nothing else; prints no result line")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build the kernels and run the lm phase, nothing "
+                         "else; prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2795,6 +3119,11 @@ def main(argv=()) -> int:
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
+    if args.lm_only:
+        phase_lm(dev)
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(card, flush=True)
+        return 0
     phase_parity(dev)
     phase_strings(dev)
     ctx, hidx, seeds, launches = phase_csl(dev)
@@ -2811,6 +3140,7 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     phase_decode(dev, launches)
     kernels.append(phase_kernel_decode(dev, launches))
+    phase_lm(dev)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,17 +7,24 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
     COOC_SHAPES,
+    LM_SHAPES,
     RECSYS_SHAPES,
     BaseConfig,
     CoocConfig,
+    LMConfig,
     RecSysConfig,
     ShapeSpec,
     replace,
 )
 
 _ARCH_MODULES: Dict[str, str] = {
-    "cooccur-csl": "repro_torch.configs.cooccur_csl",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+    "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "cooccur-csl": "repro_torch.configs.cooccur_csl",
 }
 
 

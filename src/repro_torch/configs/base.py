@@ -1,6 +1,7 @@
 """The port's configuration types: copies of ``ShapeSpec``, ``BaseConfig``,
-``RECSYS_SHAPES``, ``RecSysConfig``, ``COOC_SHAPES``, ``CoocConfig`` and
-``replace`` from ``repro.configs.base``.  Configs are pure data.  The port
+``LM_SHAPES``, ``LMConfig``, ``RECSYS_SHAPES``, ``RecSysConfig``,
+``COOC_SHAPES``, ``CoocConfig`` and ``replace`` from
+``repro.configs.base``.  Configs are pure data.  The port
 has no mesh-sharded training, optimizer or rematerialisation of its own
 yet, so ``BaseConfig``'s distribution and optimizer knobs are carried as
 the reference's data, unread."""
@@ -9,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -46,6 +49,95 @@ class BaseConfig:
                 return s
         raise KeyError(f"{self.name}: unknown shape {name!r}; have "
                        f"{[s.name for s in self.shapes]}")
+
+
+# -- Language models --------------------------------------------------------
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
+
+
+@dataclass(frozen=True)
+class LMConfig(BaseConfig):
+    family: str = "lm"
+    n_layers: int = 4
+    d_model: int = 512
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 64
+    d_ff: int = 2048
+    vocab_size: int = 32000
+    vocab_pad_multiple: int = 128   # physical vocab padded to a multiple
+    rope_theta: float = 500000.0
+    qkv_bias: bool = False          # Qwen1.5 style
+    rmsnorm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    attn_q_chunk: int = 1024        # query-chunked attention; 0 = full
+    # --- MoE ---
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0     # leading dense FFN layers (DeepSeek/Kimi)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # --- MLA (DeepSeek) ---
+    mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    shapes: Tuple[ShapeSpec, ...] = LM_SHAPES
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return int(np.ceil(self.vocab_size / m) * m)
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla:
+            attn = d * (self.n_heads * (self.qk_nope_dim + self.qk_rope_dim))
+            attn += d * (self.kv_lora_rank + self.qk_rope_dim)
+            attn += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim
+                                                        + self.v_head_dim)
+            attn += self.n_heads * self.v_head_dim * d
+            return attn
+        return (d * self.n_heads * self.head_dim * 2
+                + d * self.n_kv_heads * self.head_dim * 2)
+
+    def n_params(self) -> int:
+        """Approximate parameter count (for 6ND model-FLOPs)."""
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        dense_ff = 3 * d * self.d_ff
+        if self.moe:
+            moe_ff = self.n_experts * 3 * d * self.d_ff_expert
+            moe_ff += self.n_shared_experts * 3 * d * self.d_ff_expert
+            moe_ff += d * self.n_experts  # router
+            n_moe = L - self.first_dense_layers
+            ff_total = self.first_dense_layers * dense_ff + n_moe * moe_ff
+        else:
+            ff_total = L * dense_ff
+        return int(emb + L * self._attn_params() + ff_total + L * 2 * d + d)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if not self.moe:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        act_ff = (self.top_k + self.n_shared_experts) * 3 * d * self.d_ff_expert
+        dense_ff = 3 * d * self.d_ff
+        n_moe = L - self.first_dense_layers
+        return int(emb + L * self._attn_params()
+                   + self.first_dense_layers * dense_ff + n_moe * act_ff
+                   + L * 2 * d + d)
 
 
 RECSYS_SHAPES = (

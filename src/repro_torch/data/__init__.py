@@ -1,5 +1,5 @@
 """Host-side data: tokeniser, the synthetic CSL corpus and its statistics,
-and the seeded recsys batches."""
+and the seeded LM and recsys batches."""
 from repro_torch.data.corpus import (  # noqa: F401
     CorpusStats,
     corpus_stats,
@@ -10,4 +10,4 @@ from repro_torch.data.tokenizer import (  # noqa: F401
     build_lexicon,
     tokenize,
 )
-from repro_torch.data.pipeline import recsys_batch  # noqa: F401
+from repro_torch.data.pipeline import lm_batch, recsys_batch  # noqa: F401

@@ -239,3 +239,46 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
         _count("flash_decode")
         return out
     return ref.flash_decode_ref(q, k, v, length, chunk=chunk)
+
+
+def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                length: torch.Tensor, k_cur: torch.Tensor,
+                v_cur: torch.Tensor) -> torch.Tensor:
+    """Decode attention over (cache prefix + current token), without writing
+    the cache first.  Mirrors ``repro.kernels.ops.decode_attn``, which is
+    plain XLA: this is plain PyTorch on every device, launches none of the
+    hand-written kernels and counts nothing in :data:`LAUNCHES`.
+
+    q (B, Hq, d); k_cache (B, S, Hkv, d), v_cache (B, S, Hkv, dv); length
+    (B,) the valid cache entries of each row (the current token is in
+    addition to these); k_cur (B, Hkv, d), v_cur (B, Hkv, dv).  The current
+    token's scores merge with the cache's through an explicit max and
+    sum of exponentials.  Scores and sums are fp32 (products of the
+    operands in their promoted dtype, accumulated in fp32); the cache's
+    weights are cast once to v_cache's dtype.  Returns (B, Hq, dv) in q's
+    dtype.
+    """
+    b, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    g = hq // hkv
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, g, d).to(f32)
+    # the reference's fp32 1 / sqrt(d), computed on the host: a scalar
+    # sent to the card would stall its queue
+    scale = torch.tensor(d, dtype=f32).sqrt().reciprocal().item()
+    s1 = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.to(f32)) * scale
+    pos = torch.arange(s, device=q.device)
+    ln = torch.broadcast_to(torch.as_tensor(length, device=q.device), (b,))
+    s1 = torch.where((pos[None, :] < ln[:, None])[:, None, None, :], s1,
+                     -1e30)
+    s2 = torch.einsum("bhgd,bhd->bhg", qg, k_cur.to(f32)) * scale
+    m = torch.maximum(torch.amax(s1, dim=-1), s2)                # (B,H,G)
+    e1 = torch.exp(s1 - m[..., None])
+    e2 = torch.exp(s2 - m)
+    denom = torch.sum(e1, dim=-1) + e2
+    o1 = torch.einsum("bhgs,bshd->bhgd", e1.to(v_cache.dtype).to(f32),
+                      v_cache.to(f32))
+    out = (o1 + e2[..., None] * v_cur.to(f32)[:, :, None, :]) \
+        / denom[..., None]
+    return out.reshape(b, hq, dv).to(q.dtype)

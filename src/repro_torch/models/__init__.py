@@ -1,4 +1,5 @@
-"""Models of the port: the DLRM part of ``repro.models.recsys`` (dot
-interaction, through the hand-written kernel).  The other side models are
-the next item of ROADMAP.md §1."""
-from repro_torch.models import recsys  # noqa: F401
+"""Models of the port: DLRM (``recsys``, dot interaction, through the
+hand-written kernel) and the decoder-only LM (``transformer`` over
+``layers`` and ``moe``).  The other side models are the next items of
+ROADMAP.md §1."""
+from repro_torch.models import layers, moe, recsys, transformer  # noqa: F401

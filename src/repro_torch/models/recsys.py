@@ -33,7 +33,7 @@ from torch import nn
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, reference_tensor
 
 _NOT_PORTED = ("the {} interaction ({}) is not ported yet: DeepFM, SASRec "
                "and BERT4Rec wait for the side models, ROADMAP.md §1")
@@ -119,10 +119,7 @@ def params_from_reference(cfg: RecSysConfig, params: Mapping,
     """The reference's ``init_dlrm`` pytree (``{"table", "bot": [{"w",
     "b"}, ...], "top": [...]}``, as numpy arrays) as a :class:`DLRM` on
     ``device``, in the table's dtype."""
-    def tensor(a):
-        return torch.from_numpy(np.array(a))     # a writable host copy
-
-    table = tensor(params["table"])
+    table = reference_tensor(params["table"])
     model = DLRM(cfg, device=device, dtype=table.dtype)
     with torch.no_grad():
         model.table.copy_(table)
@@ -132,8 +129,8 @@ def params_from_reference(cfg: RecSysConfig, params: Mapping,
                 raise ValueError(f"{len(layers)} reference layers for an MLP "
                                  f"of {len(mlp.w)}")
             for w, b, layer in zip(mlp.w, mlp.b, layers):
-                w.copy_(tensor(layer["w"]))
-                b.copy_(tensor(layer["b"]))
+                w.copy_(reference_tensor(layer["w"]))
+                b.copy_(reference_tensor(layer["b"]))
     return model
 
 

@@ -1,8 +1,9 @@
-"""Serving: the plan-aware micro-batching engine (``cooc_engine``) and the
+"""Serving: the plan-aware micro-batching engine (``cooc_engine``), the
 asyncio multi-tenant front end over it (``server``: admission control,
 deadline-aware micro-batching, tenancy, metrics, warm start from a
-snapshot).  Mirrors ``repro.serve`` less the language model's
-``DecodeServer`` and ``Request``, which are not ported."""
+snapshot), and the language model's continuous-batching decode server
+(``engine``: ``DecodeServer`` and ``Request``).  Mirrors
+``repro.serve``."""
 from repro_torch.serve.admission import (  # noqa: F401
     AdmissionController,
     AdmissionDecision,
@@ -17,6 +18,7 @@ from repro_torch.serve.cooc_engine import (  # noqa: F401
     EngineClosedError,
     EngineStats,
 )
+from repro_torch.serve.engine import DecodeServer, Request  # noqa: F401
 from repro_torch.serve.metrics import (  # noqa: F401
     LatencyHistogram,
     MetricsSnapshot,

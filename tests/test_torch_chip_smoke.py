@@ -301,3 +301,103 @@ def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the LM serving path
+# ---------------------------------------------------------------------------
+
+LM_SMALL = dict(n_layers=2, d_model=128, n_heads=4, d_ff=256, vocab_size=512,
+                attn_q_chunk=0, head_dim=32)
+
+
+@pytest.fixture
+def lm_small(smoke, monkeypatch):
+    """Phase lm at the reference's reduced widths (2 layers of d 128 for
+    llama; 3 for deepseek: one dense, two MoE of 8 experts top-2, MLA
+    rank 32), 2 slots of a 64-position cache, prompts of 4-12 tokens."""
+    monkeypatch.setattr(smoke, "LM_CONFIG_OVERRIDES", {
+        "llama3-8b": dict(LM_SMALL, n_kv_heads=2),
+        "deepseek-v2-lite-16b": dict(
+            LM_SMALL, n_layers=3, n_kv_heads=4, n_experts=8, top_k=2,
+            d_ff_expert=64, n_shared_experts=1, kv_lora_rank=32,
+            qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)})
+    for name, value in [("LM_SERVED", {"llama3-8b": (5, 6),
+                                       "deepseek-v2-lite-16b": (3, 4)}),
+                        ("LM_SLOTS", 2), ("LM_MAX_LEN", 64),
+                        ("LM_PROMPT_LENS", (4, 12)), ("LM_CPU_NEW", 3)]:
+        monkeypatch.setattr(smoke, name, value)
+    return smoke
+
+
+def test_chip_smoke_lm_phase_rehearses_on_the_cpu(lm_small, capsys):
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    lm_small.phase_lm(torch.device("cpu"))
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+    out = capsys.readouterr().out
+    assert "[lm] arch=llama3-8b layers=2 d_model=128 experts=dense " \
+           "attention=gqa " in out
+    assert "[lm] arch=deepseek-v2-lite-16b layers=3 d_model=128 " \
+           "experts=8x2+1 attention=mla " in out
+    assert "[lm] arch=llama3-8b requests=5 new_tokens=6 slots=2 " in out
+    assert "[lm] arch=deepseek-v2-lite-16b requests=3 new_tokens=4 " in out
+    # two requests checked, every decode step of each
+    assert "decode_vs_prefill_requests=2 steps=10 " in out
+    assert "decode_vs_prefill_requests=2 steps=6 " in out
+    assert "routed_experts_per_layer=" in out and "bytes_bound_ms=" in out
+    assert "profile=llama3-8b decode_step device_busy_ms=not-measured" in out
+    for arch in ("llama3-8b", "deepseek-v2-lite-16b"):
+        assert (f"[lm] arch={arch} card_vs_cpu_layers=2 dtype=float32 "
+                "requests=2 tokens_identical=True steps=4 ") in out
+    assert "[lm] kernel_launches_moved=False " in out
+
+
+def _interleaved_rope(x, positions, theta):
+    """RoPE over interleaved pairs, not the reference's halves."""
+    from repro_torch.models import layers
+    angles = positions[..., None].float() * layers.rope_freqs(
+        x.shape[-1], theta, x.device)
+    if x.dim() == angles.dim() + 1:
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float()[..., 0::2], x.float()[..., 1::2]
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                       dim=-1).flatten(-2).to(x.dtype)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-lite-16b"])
+def test_chip_smoke_decode_check_fails_a_wrong_model(lm_small, monkeypatch,
+                                                     arch):
+    """A model whose decode rotates interleaved pairs (its prefill keeps
+    the halves) serves whole streams, but the decode-against-prefill
+    check refuses it."""
+    from repro_torch.models import layers, transformer as T
+    real = T._decode_attn
+
+    def wrong_decode_attn(*args):
+        T.apply_rope = _interleaved_rope
+        try:
+            return real(*args)
+        finally:
+            T.apply_rope = layers.apply_rope
+
+    lm_small._lm_serve(torch.device("cpu"), arch, 3, 5)       # passes
+    monkeypatch.setattr(T, "_decode_attn", wrong_decode_attn)
+    with pytest.raises(AssertionError, match="decode != prefill"):
+        lm_small._lm_serve(torch.device("cpu"), arch, 3, 5)
+
+
+def test_chip_smoke_lm_only_runs_the_device_and_lm_phases(smoke, monkeypatch,
+                                                          capsys):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "phase_device",
+                        lambda: calls.append("device") or "stub card, 700 W")
+    monkeypatch.setattr(smoke, "phase_lm", lambda dev: calls.append("lm"))
+    monkeypatch.setattr(smoke, "phase_parity", lambda dev: calls.append(
+        "parity"))
+    assert smoke.main(["--lm-only"]) == 0
+    assert calls == ["device", "lm"]
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "stub card, 700 W" in out

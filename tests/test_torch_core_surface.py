@@ -1,6 +1,6 @@
 """The public surface of ``repro_torch.core`` (and of the port's configs,
-data and kernel wrappers) against the reference's, and the host-side
-references of ``repro.core``.
+data, kernel wrappers, LM models and serving) against the reference's,
+and the host-side references of ``repro.core``.
 
 Output parity tests elsewhere compare what the port computes; these
 compare what it offers: every name ``repro.core`` exports, every keyword
@@ -10,6 +10,7 @@ a ``dir()`` / ``inspect.signature`` diff of the two packages, each with
 the probe that showed it.  Exact equality throughout.
 """
 import dataclasses
+import importlib
 import inspect
 import re
 import sys
@@ -44,11 +45,20 @@ DEPARTURES = {"dtype": "device"}
 #: names of the reference's data, configs and kernel-wrapper modules the
 #: port lacks because they serve the side models (ROADMAP.md §1)
 SIDE_MODELS = {
-    "configs": {"GNNConfig", "LMConfig"},
-    "data": {"build_csr", "gnn_synthetic_graph", "lm_batch",
-             "sample_subgraph", "sampler", "subgraph_sizes"},
-    "ops": {"decode_attn"},
+    "configs": {"GNNConfig"},
+    "data": {"build_csr", "gnn_synthetic_graph", "sample_subgraph",
+             "sampler", "subgraph_sizes"},
+    "ops": set(),
 }
+#: the LM path's departures (ROADMAP.md §3): an ``nn.Module`` for the
+#: params pytree, a ``torch.Generator`` for the key
+LM_DEPARTURES = {"params": "model", "key": "generator"}
+#: functions of ``repro.models.transformer`` that wait for the training
+#: and launch slices (ROADMAP.md §1)
+LM_WAITING = {"loss_fn", "param_specs", "cache_specs"}
+#: the private functions of the LM path the port keeps under their names
+LM_PRIVATE = {"layers": {"_attend"}, "moe": {"_position_in_expert"},
+              "transformer": {"_decode_attn"}}
 #: the reference's Pallas and XLA backends and its module imports: the
 #: port's wrappers pick the CUDA kernel or its plain version by device
 BACKENDS = {"cooccur_gemm_pallas", "dot_interaction_pallas",
@@ -129,6 +139,48 @@ def test_the_other_gaps_are_the_side_models_as_roadmap_lists_them():
     item = item[:item.index("### 2.")]
     for name in sorted(set().union(*SIDE_MODELS.values())):
         assert re.search(rf"\b{name}\b", item), name
+
+
+def _own_functions(module):
+    return {n for n, v in vars(module).items() if inspect.isfunction(v)
+            and v.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("name", ["layers", "moe", "transformer"])
+def test_lm_model_surfaces_match(name):
+    """Every public function of ``repro.models.<name>`` (but for
+    :data:`LM_WAITING`), and the private ones the port keeps, exists in
+    the port with every keyword parameter, up to :data:`LM_DEPARTURES`."""
+    ref = importlib.import_module(f"repro.models.{name}")
+    port = importlib.import_module(f"repro_torch.models.{name}")
+    names = {n for n in _own_functions(ref) if not n.startswith("_")}
+    names = (names - LM_WAITING) | LM_PRIVATE[name]
+    assert names - _own_functions(port) == set()
+    wrong = {}
+    for n in sorted(names):
+        pp = _params(getattr(port, n))
+        gone = [a for a in _params(getattr(ref, n))
+                if a not in pp and LM_DEPARTURES.get(a) not in pp]
+        if gone:
+            wrong[n] = gone
+    assert wrong == {}
+    if name == "transformer":
+        assert LM_WAITING <= _own_functions(ref)
+        assert not LM_WAITING & set(dir(port))
+
+
+def test_serve_surface_matches():
+    """``repro.serve``'s names are all in the port's; ``DecodeServer`` and
+    ``Request`` keep the reference's parameters and fields."""
+    import repro.serve as JS
+    import repro_torch.serve as TS
+    assert _public(JS) - _public(TS) == set()
+    for m in ("__init__", "submit", "step", "run_until_drained"):
+        pp = _params(getattr(TS.DecodeServer, m))
+        assert [a for a in _params(getattr(JS.DecodeServer, m))
+                if a not in pp and LM_DEPARTURES.get(a) not in pp] == [], m
+    assert [(f.name, f.default) for f in dataclasses.fields(TS.Request)] == [
+        (f.name, f.default) for f in dataclasses.fields(JS.Request)]
 
 
 # ---------------------------------------------------------------------------

@@ -479,6 +479,58 @@ def test_dlrm_serving_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "granite-3-8b",
+                                  "qwen1.5-32b", "deepseek-v2-lite-16b",
+                                  "kimi-k2-1t-a32b"])
+def test_lm_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The LM path at small widths (2 layers of d 128; the MoE archs 4
+    experts top-2, MLA at rank 32), fp32: the same weights on the card
+    and on the CPU give the same prefill and decode logits (rtol = atol =
+    1e-4, fp32 sums in another order) and the same greedy streams through
+    ``DecodeServer``; no hand-written kernel is launched."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DecodeServer
+    cfg = get_config(arch)
+    kw = dict(n_layers=2, d_model=128, n_heads=4, d_ff=256, vocab_size=500,
+              attn_q_chunk=0, head_dim=32,
+              n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4)
+    if cfg.moe:
+        kw.update(n_experts=4, top_k=2, d_ff_expert=64,
+                  n_shared_experts=min(cfg.n_shared_experts, 1),
+                  first_dense_layers=1)
+    if cfg.mla:
+        kw.update(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                  v_head_dim=16)
+    cfg = replace(cfg, **kw)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.float32)
+    card = T.LM(cfg, device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 9)).astype(np.int32))
+    ops.reset_launches()
+    got, cache = T.prefill(cfg, card, toks.to(cuda), max_len=12)
+    want, hcache = T.prefill(cfg, host, toks, max_len=12)
+    for _ in range(3):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(cache["kv"].cpu(), hcache["kv"],
+                                   rtol=1e-4, atol=1e-4)
+        nxt = want.argmax(-1).to(torch.int32)
+        got, cache = T.decode_step(cfg, card, cache, nxt.to(cuda))
+        want, hcache = T.decode_step(cfg, host, hcache, nxt)
+    streams = []
+    for model, dev in ((card, cuda), (host, "cpu")):
+        srv = DecodeServer(cfg, model, slots=2, max_len=32, device=dev)
+        for i in range(3):
+            srv.submit(toks[i, :3 + 2 * i].tolist(), max_new_tokens=5)
+        streams.append({r.rid: r.out_tokens for r in srv.run_until_drained()})
+    assert streams[0] == streams[1]
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+
+
 def _mesh_matches_one_device(cuda, mesh):
     """Every method's batch and the whole network (both strategies, exact
     and approx) on ``mesh`` equal the unsharded context's on the card,

@@ -38,10 +38,6 @@ from repro_torch.serve import (  # noqa: E402
     TenantConfig,
 )
 
-#: the reference's serving surface that the port leaves out: the language
-#: model's decode server, which is not ported
-NOT_PORTED = {"DecodeServer", "Request", "engine"}
-
 
 def _same_net(got, want, msg=""):
     for f in ("src", "dst", "weight", "valid"):
@@ -227,14 +223,14 @@ def _public(obj):
 
 
 def test_serving_exports_match_reference():
-    assert _public(TS) == _public(JS) - NOT_PORTED
+    assert _public(TS) == _public(JS)
 
 
 SURFACE = ("CoocServer", "ServerConfig", "TenantConfig", "ServeResponse",
            "MetricsSnapshot", "TenantCounters", "AdmissionPolicy",
            "AdmissionDecision", "AdmissionController", "StepTimeModel",
            "ServerMetrics", "LatencyHistogram", "QuantileSummary",
-           "CoocRequest", "CoocEngine", "EngineStats")
+           "CoocRequest", "CoocEngine", "EngineStats", "Request")
 
 
 @pytest.mark.parametrize("name", SURFACE)
