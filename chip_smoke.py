@@ -17,8 +17,9 @@ and warm-starts the multi-tenant ``CoocServer`` from it, which serves an
 open-loop trace.
 Then it serves dlrm-rm2 at full size
 through the dot-interaction kernel, runs the flash-decode kernel at
-llama3-8b's decode cells, and serves llama3-8b and deepseek-v2-lite-16b
-at full size through the LM decode server.  Phases:
+llama3-8b's decode cells, serves llama3-8b and deepseek-v2-lite-16b
+at full size through the LM decode server, and serves DeepFM, SASRec,
+BERT4Rec and GIN at their published widths.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
   2. parity       the three CSL kernels == their plain versions, exact, at
@@ -127,6 +128,28 @@ at full size through the LM decode server.  Phases:
                   card and through the port on the CPU: identical greedy
                   tokens, logits within LM_CPU_TOL; no kernel launch
                   count moves
+ 15. side         the seed's side models at their published widths, fp32
+                  weights from a seeded generator, none of the five
+                  kernels on their paths: deepfm (39 x 10^6 x 10 table),
+                  sasrec and bert4rec (10^6 + 2 items) served at
+                  serve_p99 (with SIDE_CANDIDATES candidates a sequence),
+                  serve_bulk (bert4rec in slices of SIDE_BULK_SLICE) and
+                  retrieval_cand (one sequence against 10^6 candidates),
+                  64 rows of each cell == a float64 numpy recomputation;
+                  gin-tu at every GNN_SHAPES cell: ogb_products
+                  (2,449,029 nodes, 61,859,140 edges, full-graph
+                  node_loss; its layer-1 aggregate of 64 nodes == float64
+                  sums over the CSR; two runs compared bit for bit),
+                  minibatch_lg (build_csr and sample_subgraph over a
+                  114,615,892-edge graph, 1,024 seeds, fanouts 15 and 10,
+                  node_loss with edge_mask), molecule (128 graphs,
+                  graph_loss) and full_graph_sm, molecule's and
+                  full_graph_sm's logits == a float64 numpy forward;
+                  p50 a call, samples or nodes a second, peak memory,
+                  bytes and operations bounds, profiled calls; then
+                  each arch at the reference's reduced_config size on
+                  the card == the port on the CPU (SIDE_CPU_TOL); no
+                  kernel launch count moves
 
 Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
@@ -135,7 +158,8 @@ device, or outside a checkout, it exits non-zero before printing a result.
 
 ``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
 compare kernel 4 between two trees on one card, and prints no result line;
-``--lm-only`` runs phases 1 and 14 alone, and prints no result line.
+``--lm-only`` runs phases 1 and 14 alone and ``--side-only`` phases 1
+and 15 alone; neither prints a result line.
 """
 from __future__ import annotations
 
@@ -232,6 +256,40 @@ LM_DECODE_TOL = 0.25
 # of their max |logit| (fp32 sums in another order)
 LM_CPU_LAYERS, LM_CPU_NEW, LM_CPU_TOL = 2, 6, 1e-4
 
+# the seed's side models at their published widths (phase side), fp32
+# weights from a seeded generator.  Recommenders at RECSYS_SHAPES' serving
+# cells: the sequential models score SIDE_CANDIDATES candidates a sequence
+# at serve_p99 and serve_bulk (the reference's cells, launch/cells.py) and
+# one sequence against RETRIEVAL_CAND candidates at retrieval_cand.
+SIDE_RECSYS = ("deepfm", "sasrec", "bert4rec")
+SIDE_CONFIG_OVERRIDES = {}     # arch -> config fields (none: full size)
+SIDE_CANDIDATES = 100
+SIDE_P99_BATCHES = 20
+# serve_bulk rows a call.  bert4rec's attention scores over all 262,144
+# sequences would be 262,144 x 2 heads x 200^2 x 4 B = 84 GB and its FFN
+# activation 54 GB, more than the card holds, so it is served in slices
+# of 32,768 sequences (about 25 GB of transients each); the width is
+# unchanged.  The others take the whole batch in one call.
+SIDE_BULK_SLICE = {"bert4rec": 32_768}
+N_SIDE_CHECKED = 64            # rows of each cell held against float64
+# gin-tu at GNN_SHAPES' cells; GNN_CELL_OVERRIDES cuts a cell's dims
+# (none: full size).  Timed calls a cell.
+GNN_CELL_OVERRIDES = {}
+GNN_CALLS = {"ogb_products": 3, "minibatch_lg": 10, "molecule": 20,
+             "full_graph_sm": 20}
+# fp32 GIN logits against a float64 numpy forward (full_graph_sm and
+# molecule), and the layer-1 aggregate of ogb_products nodes against
+# float64 sums over the CSR: the same arithmetic in another order
+GIN_F64_RTOL, GIN_F64_ATOL = 1e-4, 1e-4
+AGG_RTOL, AGG_ATOL = 1e-5, 1e-4
+# the card against the port on the CPU at the reference's reduced_config
+# size (launch/train.py): rows a field and items 1,000, sequences of at
+# most 16; gin-tu as published.  fp32 sums in another order (GIN's
+# scatter-add by atomics on the card): outputs within this rtol and atol;
+# accuracies may differ by one flipped argmax
+SIDE_REDUCED = dict(vocab_per_field=1000, n_items=1000)
+SIDE_CPU_TOL = 1e-4
+
 QUICKSTART = [
     "graph neural networks learn node embeddings from graph structure",
     "co-occurrence networks reveal semantic relationships in text corpora",
@@ -272,6 +330,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_call(fn):
+    """``fn()`` and its host time (ms), from a synchronized card to the
+    end of its work on it."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
 
 
 def oracle_edges(hidx, seeds, depth, topk, beam):
@@ -2494,11 +2563,7 @@ def phase_dlrm(dev, launches):
         matmul_precision=torch.get_float32_matmul_precision())
 
     def timed(fn, batch):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(cfg, model, batch)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
+        return _timed_call(lambda: fn(cfg, model, batch))
 
     p99 = [R.as_batch(recsys_batch(cfg, SERVE_P99, step), dev)
            for step in range(N_P99_BATCHES + 1)]
@@ -3089,6 +3154,599 @@ def phase_lm(dev):
         seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the seed's side models
+# ---------------------------------------------------------------------------
+
+
+def side_config(arch):
+    from repro_torch.configs import get_config, replace
+    return replace(get_config(arch), **SIDE_CONFIG_OVERRIDES.get(arch, {}))
+
+
+def _f64(t):
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def _np_rmsnorm(x, g):
+    return x / np.sqrt(np.mean(x * x, axis=-1, keepdims=True) + 1e-5) * g
+
+
+def _np_mlp(mlp, x):
+    n = len(mlp.w)
+    for i, (w, b) in enumerate(zip(mlp.w, mlp.b)):
+        x = x @ _f64(w) + _f64(b)
+        if i < n - 1:
+            x = np.maximum(x, 0.0)
+    return x
+
+
+def deepfm_rows_f64(cfg, model, sparse_ids):
+    """DeepFM logits of ``sparse_ids`` (n, F) recomputed in float64 numpy
+    from the model's weights (the rows gathered on its device)."""
+    import torch
+    rows = (sparse_ids.to(torch.int64)
+            + torch.arange(cfg.n_sparse, device=sparse_ids.device)
+            * cfg.vocab_per_field)
+    emb = _f64(model.table[rows])                              # (n, F, E)
+    fo = _f64(model.fm_w[rows]).sum(-1) + float(model.fm_b)
+    s = emb.sum(1)
+    so = 0.5 * (s * s - (emb * emb).sum(1)).sum(-1)
+    deep = _np_mlp(model.mlp, emb.reshape(emb.shape[0], -1))[:, 0]
+    return fo + so + deep
+
+
+def seq_hidden_f64(cfg, model, seq):
+    """The last position's hidden state of ``seq`` (n, S), recomputed in
+    float64 numpy: item and position embeddings, pre-norm blocks (causal
+    for SASRec), the final norm."""
+    import torch
+    n, s = seq.shape
+    h, e = cfg.n_heads, cfg.embed_dim
+    dh = e // h
+    x = _f64(model.item_emb[seq.to(torch.int64)]) + _f64(model.pos_emb)[:s]
+    mask = np.tril(np.ones((s, s), bool)) if cfg.interaction == \
+        "self-attn-seq" else np.ones((s, s), bool)
+    for blk in model.blocks:
+        p = {k: _f64(v) for k, v in blk.named_parameters()}
+        xn = _np_rmsnorm(x, p["ln1"])
+        q, k, v = ((xn @ p[w]).reshape(n, s, h, dh) for w in ("wq", "wk",
+                                                              "wv"))
+        sc = np.einsum("nqhd,nkhd->nhqk", q, k) / np.sqrt(dh)
+        sc = np.where(mask, sc, -np.inf)
+        sc = np.exp(sc - sc.max(-1, keepdims=True))
+        pr = sc / sc.sum(-1, keepdims=True)
+        o = np.einsum("nhqk,nkhd->nqhd", pr, v).reshape(n, s, e)
+        x = x + o @ p["wo"]
+        xn = _np_rmsnorm(x, p["ln2"])
+        x = x + np.maximum(xn @ p["w1"] + p["b1"], 0.0) @ p["w2"] + p["b2"]
+    return _np_rmsnorm(x, _f64(model.final_ln))[:, -1]
+
+
+def _check_rows(what, got, want):
+    """``got`` (fp32, any device) against float64 ``want`` within
+    DLRM_RTOL / DLRM_ATOL; finite."""
+    got = _f64(got)
+    err = np.abs(got - want)
+    if not np.isfinite(got).all() or (err > DLRM_ATOL
+                                      + DLRM_RTOL * np.abs(want)).any():
+        raise AssertionError(f"{what}: {got.shape[0]} sampled rows differ "
+                             f"from float64 by up to {err.max():.3g}")
+    return float(err.max())
+
+
+def _sample_rows(n, k=None):
+    rng = np.random.default_rng(n)
+    return np.sort(rng.choice(n, min(k or N_SIDE_CHECKED, n), replace=False))
+
+
+def side_batch(cfg, n, step, dev, seed=0):
+    """A serving batch of ``n`` rows from ``recsys_batch``: the sparse ids
+    (DeepFM), or the sequences with SIDE_CANDIDATES seeded candidates each
+    (SASRec, BERT4Rec)."""
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys as R
+    b = recsys_batch(cfg, n, step, seed=seed)
+    if cfg.interaction == "fm":
+        return R.as_batch({"sparse_ids": b["sparse_ids"]}, dev)
+    cand = np.random.default_rng([seed, step]).integers(
+        0, cfg.n_items, (n, SIDE_CANDIDATES)).astype(np.int32)
+    return R.as_batch({"seq": b["seq"], "candidates": cand}, dev)
+
+
+def _recsys_cost(cfg, model, rows, cands):
+    """(bytes, fp32 operations) one call must move and do: every weight
+    but the tables read once, the ids and the gathered table rows read
+    once, the output written once; operations as the reference's cell
+    model counts them (launch/cells.py), with 2 E a scored candidate."""
+    e = cfg.embed_dim
+    dense = sum(p.numel() for n, p in model.named_parameters()
+                if n not in ("table", "fm_w", "item_emb"))
+    if cfg.interaction == "fm":
+        f = cfg.n_sparse
+        dims = (f * e,) + tuple(cfg.mlp) + (1,)
+        mlp = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+        return (4 * (dense + rows * f * (2 + e) + rows),
+                rows * (mlp + 4 * f * e))
+    s = cfg.seq_len
+    per_tok = cfg.n_blocks * (2 * 4 * e * e + 2 * 2 * e * 4 * e)
+    attn = cfg.n_blocks * 2 * 2 * s * s * e
+    return (4 * (dense + rows * s * (1 + e) + cands * (2 + e)),
+            rows * (s * per_tok + attn) + 2 * cands * e)
+
+
+def _say_cost(phase, what, n_bytes, n_ops, ms):
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
+    say(phase, cell=what, bytes=n_bytes, flops=n_ops,
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        roofline_share=f"{bound_ms / ms:.3f}")
+
+
+def _side_recsys(dev, arch):
+    """One recommender at full width: serve_p99, serve_bulk and
+    retrieval_cand, 64 rows of each against float64."""
+    import torch
+    from repro_torch.models import recsys as R
+    cfg = side_config(arch)
+    seq = cfg.interaction != "fm"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    params_gb = sum(p.numel() * 4 for p in model.parameters()) / 1e9
+    say("side", arch=arch, interaction=cfg.interaction,
+        table_rows=(cfg.n_items + 2 if seq else cfg.n_sparse *
+                    cfg.vocab_per_field), embed=cfg.embed_dim,
+        **({"seq_len": cfg.seq_len, "blocks": cfg.n_blocks,
+            "heads": cfg.n_heads} if seq else {"mlp": "-".join(
+                map(str, cfg.mlp))}),
+        params_gb=f"{params_gb:.3f}", dtype="float32",
+        init_s=f"{time.perf_counter() - t0:.2f}")
+
+    def serve(batch):
+        step = SIDE_BULK_SLICE.get(arch, 0)
+        n = next(iter(batch.values())).shape[0]
+        if not step or n <= step:
+            return R.serve_fn(cfg, model, batch)
+        return torch.cat([R.serve_fn(cfg, model, {k: v[i:i + step]
+                                                  for k, v in batch.items()})
+                          for i in range(0, n, step)])
+
+    def want_rows(batch, rows):
+        if not seq:
+            return 1 / (1 + np.exp(-deepfm_rows_f64(
+                cfg, model, batch["sparse_ids"][rows])))
+        h = seq_hidden_f64(cfg, model, batch["seq"][rows])
+        cand = _f64(model.item_emb[batch["candidates"][rows].to(
+            torch.int64)])
+        return np.einsum("ne,nce->nc", h, cand)
+
+    out, errs = {}, {}
+    p99 = [side_batch(cfg, SERVE_P99, step, dev)
+           for step in range(SIDE_P99_BATCHES + 1)]
+    serve(p99[-1])                                   # first use
+    p99_ms = []
+    for b in p99[:-1]:
+        out["serve_p99"], ms = _timed_call(lambda: serve(b))
+        p99_ms.append(ms)
+    rows = torch.from_numpy(_sample_rows(SERVE_P99)).to(dev)
+    errs["serve_p99"] = _check_rows(f"{arch} serve_p99",
+                                    out["serve_p99"][rows],
+                                    want_rows(p99[-2], rows))
+    t0 = time.perf_counter()
+    bulk = side_batch(cfg, SERVE_BULK, 0, dev, seed=1)
+    bulk_gen_s = time.perf_counter() - t0
+    serve({k: v[:SIDE_BULK_SLICE.get(arch, SERVE_BULK)]
+           for k, v in bulk.items()})                # first use
+    out["serve_bulk"], bulk_ms = _timed_call(lambda: serve(bulk))
+    rows = torch.from_numpy(_sample_rows(SERVE_BULK)).to(dev)
+    errs["serve_bulk"] = _check_rows(f"{arch} serve_bulk",
+                                     out["serve_bulk"][rows],
+                                     want_rows(bulk, rows))
+    t0 = time.perf_counter()
+    if seq:
+        one = side_batch(cfg, 1, 0, dev, seed=2)
+        cand = {"seq": one["seq"], "candidates": torch.from_numpy(
+            np.random.default_rng(3).integers(0, cfg.n_items, RETRIEVAL_CAND)
+            .astype(np.int32)).to(dev)}
+    else:
+        cand = side_batch(cfg, RETRIEVAL_CAND, 0, dev, seed=3)
+    cand_gen_s = time.perf_counter() - t0
+    R.retrieval_fn(cfg, model, cand)                 # first use
+    out["retrieval_cand"], cand_ms = _timed_call(
+        lambda: R.retrieval_fn(cfg, model, cand))
+    rows = torch.from_numpy(_sample_rows(RETRIEVAL_CAND)).to(dev)
+    if seq:
+        h = seq_hidden_f64(cfg, model, cand["seq"])            # (1, E)
+        want = _f64(model.item_emb[cand["candidates"][rows].to(
+            torch.int64)]) @ h[0]
+        got = out["retrieval_cand"][0, rows]
+    else:
+        want = deepfm_rows_f64(cfg, model, cand["sparse_ids"][rows])
+        got = out["retrieval_cand"][rows]
+    errs["retrieval_cand"] = _check_rows(f"{arch} retrieval_cand", got, want)
+    shapes = {"serve_p99": (SERVE_P99, SIDE_CANDIDATES) if seq
+              else (SERVE_P99,),
+              "serve_bulk": (SERVE_BULK, SIDE_CANDIDATES) if seq
+              else (SERVE_BULK,),
+              "retrieval_cand": (1, RETRIEVAL_CAND) if seq
+              else (RETRIEVAL_CAND,)}
+    for name, shape in shapes.items():
+        if tuple(out[name].shape) != shape:
+            raise AssertionError(f"{arch} {name}: shape "
+                                 f"{tuple(out[name].shape)} != {shape}")
+
+    p50, p99v = np.percentile(p99_ms, [50, 99])
+    cands = SIDE_CANDIDATES if seq else 0
+    say("side", arch=arch, cell="serve_p99", batch=SERVE_P99,
+        batches=len(p99_ms), p50_ms=f"{p50:.4f}", p99_ms=f"{p99v:.4f}",
+        samples_per_s=f"{SERVE_P99 * len(p99_ms) / (sum(p99_ms) / 1e3):.1f}",
+        max_abs_err_vs_f64=f"{errs['serve_p99']:.3g}")
+    _say_cost("side", f"{arch} serve_p99",
+              *_recsys_cost(cfg, model, SERVE_P99, SERVE_P99 * cands), p50)
+    say("side", arch=arch, cell="serve_bulk", batch=SERVE_BULK,
+        rows_a_call=SIDE_BULK_SLICE.get(arch, SERVE_BULK),
+        ms=f"{bulk_ms:.3f}",
+        samples_per_s=f"{SERVE_BULK / (bulk_ms / 1e3):.1f}",
+        batch_gen_s=f"{bulk_gen_s:.2f}",
+        max_abs_err_vs_f64=f"{errs['serve_bulk']:.3g}")
+    _say_cost("side", f"{arch} serve_bulk",
+              *_recsys_cost(cfg, model, SERVE_BULK, SERVE_BULK * cands),
+              bulk_ms)
+    say("side", arch=arch, cell="retrieval_cand", candidates=RETRIEVAL_CAND,
+        ms=f"{cand_ms:.3f}", batch_gen_s=f"{cand_gen_s:.2f}",
+        max_abs_err_vs_f64=f"{errs['retrieval_cand']:.3g}")
+    _say_cost("side", f"{arch} retrieval_cand",
+              *(_recsys_cost(cfg, model, 1, RETRIEVAL_CAND) if seq else
+                _recsys_cost(cfg, model, RETRIEVAL_CAND, 0)), cand_ms)
+    say_profile("side", f"{arch} serve_p99", lambda: serve(p99[0]))
+    one_call = {k: v[:SIDE_BULK_SLICE.get(arch, SERVE_BULK)]
+                for k, v in bulk.items()}
+    say_profile("side", f"{arch} serve_bulk call", lambda: serve(one_call))
+    say("side", arch=arch, rows_checked=N_SIDE_CHECKED, rtol=DLRM_RTOL,
+        atol=DLRM_ATOL, peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    del model, out, p99, bulk, cand, one_call
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- gin-tu ----------------------------------------------------------------
+
+
+def gnn_cell(name):
+    """A GNN_SHAPES cell's dims, with GNN_CELL_OVERRIDES applied."""
+    from repro_torch.configs import get_config
+    return dict(get_config("gin-tu").shape(name).dims,
+                **GNN_CELL_OVERRIDES.get(name, {}))
+
+
+def gnn_batch(name):
+    """The cell's batch as numpy, and the host seconds it took:
+    ``full_graph_sm`` and ``ogb_products`` a whole ``gnn_synthetic_graph``;
+    ``minibatch_lg`` one ``sample_subgraph`` of 1,024 seeds (fanouts 15,
+    10) over the synthetic graph's CSR, labels on the seeds only;
+    ``molecule`` 128 synthetic graphs of 30 nodes and 64 edges, one label
+    each.  The graph's CSR comes back for ``ogb_products`` (the aggregate
+    check) and ``minibatch_lg``."""
+    from repro_torch.data import (build_csr, gnn_synthetic_graph,
+                                  sample_subgraph)
+    d = gnn_cell(name)
+    t0 = time.perf_counter()
+    csr = None
+    if name == "molecule":
+        graphs = [gnn_synthetic_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                                      d["n_classes"], seed=g)
+                  for g in range(d["batch"])]
+        off = np.arange(d["batch"]) * d["n_nodes"]
+        batch = {
+            "x": np.concatenate([g["x"] for g in graphs]),
+            "edge_src": np.concatenate([g["edge_src"] + o for g, o in
+                                        zip(graphs, off)]).astype(np.int32),
+            "edge_dst": np.concatenate([g["edge_dst"] + o for g, o in
+                                        zip(graphs, off)]).astype(np.int32),
+            "graph_id": np.repeat(np.arange(d["batch"]),
+                                  d["n_nodes"]).astype(np.int32),
+            "labels": np.random.default_rng(0).integers(
+                0, d["n_classes"], d["batch"]).astype(np.int32)}
+    else:
+        g = gnn_synthetic_graph(d["n_nodes"], d["n_edges"], d["d_feat"],
+                                d["n_classes"], seed=0)
+        if name in ("ogb_products", "minibatch_lg"):
+            csr = build_csr(g["edge_src"], g["edge_dst"], d["n_nodes"])
+        if name == "minibatch_lg":
+            rng = np.random.default_rng(1)
+            seeds = rng.choice(d["n_nodes"], d["batch_nodes"], replace=False)
+            sub = sample_subgraph(*csr, seeds, (d["fanout0"], d["fanout1"]),
+                                  rng)
+            mask = np.zeros(len(sub["nodes"]), np.float32)
+            mask[:sub["n_seeds"]] = 1.0
+            batch = {"x": g["x"][sub["nodes"]],
+                     "edge_src": sub["edge_src"], "edge_dst": sub["edge_dst"],
+                     "edge_mask": sub["edge_mask"],
+                     "labels": g["labels"][sub["nodes"]],
+                     "label_mask": mask}
+        else:
+            batch = g
+    return batch, csr, time.perf_counter() - t0
+
+
+def gin_f64(model, x, src, dst, mask=None):
+    """GIN's node states recomputed in float64 numpy from the model's
+    weights: a scatter-add aggregate, (1 + eps) h + agg, the MLP, ReLU and
+    a LayerNorm over the population variance."""
+    h = x.astype(np.float64)
+    for lp in model.layers:
+        p = {k: _f64(v) for k, v in lp.named_parameters()}
+        msg = h[src] if mask is None else h[src] * mask[:, None]
+        agg = np.zeros_like(h)
+        np.add.at(agg, dst, msg)
+        z = (1.0 + p["eps"]) * h + agg
+        r = np.maximum(np.maximum(z @ p["w1"] + p["b1"], 0.0) @ p["w2"]
+                       + p["b2"], 0.0)
+        mu = r.mean(-1, keepdims=True)
+        h = (r - mu) / np.sqrt(((r - mu) ** 2).mean(-1, keepdims=True)
+                               + 1e-5) * p["ln"]
+    return h
+
+
+def _check_gin_f64(name, cfg, model, batch, tb):
+    """Every logit of ``full_graph_sm`` (node) and ``molecule`` (graph)
+    against a float64 numpy forward of the same weights."""
+    from repro_torch.models import gnn as G
+    h = G.gin_forward(cfg, model, tb["x"], tb["edge_src"], tb["edge_dst"],
+                      tb.get("edge_mask"))
+    hf = gin_f64(model, batch["x"], batch["edge_src"], batch["edge_dst"],
+                 batch.get("edge_mask"))
+    if name == "molecule":
+        got = G.graph_logits(cfg, model, h, tb["graph_id"],
+                             len(batch["labels"]))
+        pooled = np.zeros((len(batch["labels"]), hf.shape[1]))
+        np.add.at(pooled, batch["graph_id"], hf)
+        hf = pooled
+    else:
+        got = G.node_logits(cfg, model, h)
+    want = hf @ _f64(model.out) + _f64(model.out_b)
+    got = _f64(got)
+    err = np.abs(got - want)
+    if (err > GIN_F64_ATOL + GIN_F64_RTOL * np.abs(want)).any():
+        raise AssertionError(f"gin-tu {name}: logits != float64 by up to "
+                             f"{err.max():.3g}")
+    return float(err.max())
+
+
+def _check_aggregate(x, src, dst, csr, dev):
+    """The layer-1 aggregate of N_SIDE_CHECKED nodes (through the model's
+    own ``_aggregate``) against float64 sums over the CSR."""
+    import torch
+    from repro_torch.models import gnn as G
+    indptr, indices = csr
+    nodes = _sample_rows(len(indptr) - 1)
+    agg = G._aggregate(x, src, dst)[torch.from_numpy(nodes).to(dev)]
+    xh = x.cpu().numpy()
+    want = np.stack([xh[indices[indptr[v]:indptr[v + 1]]].astype(
+        np.float64).sum(0) for v in nodes])
+    got = _f64(agg)
+    err = np.abs(got - want)
+    if (err > AGG_ATOL + AGG_RTOL * np.abs(want)).any():
+        raise AssertionError(f"gin-tu ogb_products: the layer-1 aggregate "
+                             f"!= float64 by up to {err.max():.3g}")
+    degs = np.diff(indptr)[nodes]
+    return float(err.max()), int(degs.min()), int(degs.max())
+
+
+def _gin_cost(cfg, batch, d_feat, n_classes):
+    """(bytes, operations): the inputs read once and the weights once (the
+    loss written is a scalar); the scatter-adds, products and the head.
+    And the messages' floor: each layer writes and reads its (E, d_in)
+    gathered messages once."""
+    n, e = batch["x"].shape[0], batch["edge_src"].shape[0]
+    d = cfg.d_hidden
+    dims = [d_feat] + [d] * (cfg.n_layers - 1)
+    weights = sum(a * d + d * d + 4 * d for a in dims) + d * n_classes
+    n_bytes = sum(int(v.nbytes) for v in batch.values()) + 4 * weights
+    n_ops = sum(e * a + 2 * n * (a * d + d * d) for a in dims) \
+        + 2 * n * d * n_classes
+    msg_bytes = sum(2 * e * a * 4 for a in dims)
+    return n_bytes, n_ops, msg_bytes
+
+
+def _side_gnn(dev):
+    """gin-tu at each GNN_SHAPES cell; returns the host seconds spent
+    building graphs.  The two large graphs are built side by side, one in
+    a second thread (numpy's random fills, ``searchsorted`` and
+    ``argsort`` release the interpreter lock), before any cell runs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.models import gnn as G
+    cfg = side_config("gin-tu")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        later = pool.submit(gnn_batch, "minibatch_lg")
+        built = {"ogb_products": gnn_batch("ogb_products"),
+                 "minibatch_lg": later.result()}
+    host_s = time.perf_counter() - t0
+    say("side", graphs_built_side_by_side="ogb_products,minibatch_lg",
+        wall_s=f"{host_s:.2f}")
+    for name in ("ogb_products", "minibatch_lg", "molecule",
+                 "full_graph_sm"):
+        d = gnn_cell(name)
+        if name in built:
+            batch, csr, build_s = built.pop(name)
+        else:
+            batch, csr, build_s = gnn_batch(name)
+            host_s += build_s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        model = G.init_gin(cfg, torch.Generator(device=dev).manual_seed(0),
+                           d["d_feat"], d["n_classes"], device=dev)
+        loss_fn = G.graph_loss if name == "molecule" else G.node_loss
+
+        def call():
+            return loss_fn(cfg, model, tb)
+
+        call()                                       # first use
+        ms = []
+        for _ in range(GNN_CALLS[name]):
+            (loss, metrics), t = _timed_call(call)
+            ms.append(t)
+        loss, acc = float(loss), float(metrics["acc"])
+        if not (np.isfinite(loss) and loss > 0 and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"gin-tu {name}: loss {loss}, acc {acc}")
+        fields = {}
+        if name in ("molecule", "full_graph_sm"):
+            fields["max_abs_err_vs_f64"] = \
+                f"{_check_gin_f64(name, cfg, model, batch, tb):.3g}"
+        if name == "ogb_products":
+            err, lo, hi = _check_aggregate(tb["x"], tb["edge_src"],
+                                           tb["edge_dst"], csr, dev)
+            fields.update(agg_max_abs_err_vs_f64=f"{err:.3g}",
+                          agg_nodes=N_SIDE_CHECKED, agg_degrees=f"{lo}..{hi}")
+            h1 = G.gin_forward(cfg, model, tb["x"], tb["edge_src"],
+                               tb["edge_dst"])
+            h2 = G.gin_forward(cfg, model, tb["x"], tb["edge_src"],
+                               tb["edge_dst"])
+            fields["bits_identical_across_runs"] = bool(torch.equal(h1, h2))
+            fields["run_to_run_max_abs_diff"] = \
+                f"{float((h1 - h2).abs().max()):.3g}"
+            del h1, h2
+        p50 = float(np.percentile(ms, 50))
+        n_nodes, n_edges = batch["x"].shape[0], batch["edge_src"].shape[0]
+        say("side", arch="gin-tu", cell=name, nodes=n_nodes, edges=n_edges,
+            d_feat=d["d_feat"], classes=d["n_classes"],
+            loss_fn=loss_fn.__name__, graph_build_s=f"{build_s:.2f}",
+            h2d_s=f"{h2d_s:.2f}", calls=len(ms), p50_ms=f"{p50:.4f}",
+            **({"graphs_per_s": f"{d['batch'] / (p50 / 1e3):.1f}"}
+               if name == "molecule" else
+               {"nodes_per_s": f"{n_nodes / (p50 / 1e3):.1f}"}),
+            loss=f"{loss:.5f}", acc=f"{acc:.4f}",
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+            **fields)
+        n_bytes, n_ops, msg_bytes = _gin_cost(cfg, batch, d["d_feat"],
+                                              d["n_classes"])
+        _say_cost("side", f"gin-tu {name}", n_bytes, n_ops, p50)
+        say("side", cell=f"gin-tu {name}", message_bytes=msg_bytes,
+            message_floor_ms=f"{msg_bytes / HBM_BYTES_PER_S * 1e3:.4f}")
+        if name == "ogb_products":
+            say_profile("side", "gin-tu ogb_products node_loss", call)
+        del tb, model, batch, csr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return host_s
+
+
+def _side_card_against_cpu(dev):
+    """Each arch at the reference's reduced_config size, the same fp32
+    weights on the card and on the CPU: serve_fn, retrieval_fn and loss_fn
+    (recommenders), gin_forward with and without edge_mask, node_loss and
+    graph_loss (gin-tu), within SIDE_CPU_TOL."""
+    import torch
+    from repro_torch.configs import get_config, replace
+    from repro_torch.data import gnn_synthetic_graph, recsys_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+
+    def close(what, a, b):
+        a, b = a.cpu(), b.cpu()
+        if not torch.allclose(a, b, rtol=SIDE_CPU_TOL, atol=SIDE_CPU_TOL):
+            raise AssertionError(f"{what}: card != CPU by up to "
+                                 f"{float((a - b).abs().max()):.3g}")
+        return float((a - b).abs().max())
+
+    errs = {}
+    for arch in SIDE_RECSYS:
+        cfg = get_config(arch)
+        cfg = replace(cfg, **SIDE_REDUCED, seq_len=min(cfg.seq_len, 16))
+        card = R.init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                             device=dev)
+        host = type(card)(cfg, device="cpu")
+        host.load_state_dict(card.state_dict())
+        serve = side_batch(cfg, 64, 5, "cpu")
+        loss = R.as_batch(recsys_batch(cfg, 64, 6), "cpu")
+        if arch == "deepfm":
+            retr = side_batch(cfg, 300, 7, "cpu")
+        else:
+            retr = {"seq": serve["seq"][:1], "candidates": torch.arange(
+                cfg.n_items + 2, dtype=torch.int32)}
+        err = 0.0
+        for what, fn, b in (
+                ("serve_fn", R.serve_fn, serve),
+                ("retrieval_fn", R.retrieval_fn, retr),
+                ("loss_fn", lambda c, m, x: R.loss_fn(c, m, x)[0], loss)):
+            err = max(err, close(f"{arch} {what}",
+                                 fn(cfg, card, {k: v.to(dev) for k, v in
+                                                b.items()}),
+                                 fn(cfg, host, b)))
+        errs[arch] = err
+    cfg = side_config("gin-tu")
+    g = gnn_synthetic_graph(512, 2048, 32, 8, seed=0)
+    g["edge_mask"] = (np.arange(2048) % 4 != 3).astype(np.float32)
+    card = G.init_gin(cfg, torch.Generator(device=dev).manual_seed(3), 32, 8,
+                      device=dev)
+    host = G.GIN(cfg, 32, 8, device="cpu")
+    host.load_state_dict(card.state_dict())
+    tb = {k: torch.from_numpy(v) for k, v in g.items()}
+    cb = {k: v.to(dev) for k, v in tb.items()}
+    err = 0.0
+    for mask in (None, "edge_mask"):
+        err = max(err, close(f"gin-tu gin_forward edge_mask={mask}",
+                             G.gin_forward(cfg, card, cb["x"], cb["edge_src"],
+                                           cb["edge_dst"], cb.get(mask)),
+                             G.gin_forward(cfg, host, tb["x"], tb["edge_src"],
+                                           tb["edge_dst"], tb.get(mask))))
+    tb["graph_id"] = torch.arange(512, dtype=torch.int32) // 64
+    tb["labels_g"] = torch.arange(8, dtype=torch.int32) % 8
+    cb = {k: v.to(dev) for k, v in tb.items()}
+    for fn, pick in ((G.node_loss, lambda b: b),
+                     (G.graph_loss, lambda b: dict(b, labels=b["labels_g"]))):
+        (lc, mc), (lh, mh) = fn(cfg, card, pick(cb)), fn(cfg, host, pick(tb))
+        err = max(err, close(f"gin-tu {fn.__name__}", lc, lh))
+        n = float(pick(tb)["labels"].shape[0])
+        if abs(float(mc["acc"]) - float(mh["acc"])) * n > 1.0 + 1e-6:
+            raise AssertionError(f"gin-tu {fn.__name__}: accuracy "
+                                 f"{float(mc['acc'])} != {float(mh['acc'])}")
+    errs["gin-tu"] = err
+    say("side", card_vs_cpu=json.dumps({k: float(f"{v:.3g}")
+                                        for k, v in errs.items()}),
+        tol=SIDE_CPU_TOL, sizes="reduced_config")
+
+
+def phase_side(dev):
+    """DeepFM, SASRec and BERT4Rec at their serving cells and gin-tu at
+    every GNN_SHAPES cell, at full width; each held against float64, then
+    the card against the CPU at reduced size.  None of the five kernels is
+    on these paths, so no launch count moves."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    say("side", start_allocated_gb=
+        f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        matmul_precision=torch.get_float32_matmul_precision())
+    before = dict(ops.LAUNCHES)
+    for arch in SIDE_RECSYS:
+        _side_recsys(dev, arch)
+    host_s = _side_gnn(dev)
+    _side_card_against_cpu(dev)
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"the side phase launched kernels: {before} -> "
+                             f"{ops.LAUNCHES}")
+    secs = time.perf_counter() - t0
+    say("side", kernel_launches_moved=False, seconds=f"{secs:.1f}",
+        host_graph_build_s=f"{host_s:.1f}",
+        rest_s=f"{secs - host_s:.1f}")
+
+
 def main(argv=()) -> int:
     import argparse
     import torch
@@ -3099,6 +3757,9 @@ def main(argv=()) -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="build the kernels and run the lm phase, nothing "
                          "else; prints no result line")
+    ap.add_argument("--side-only", action="store_true",
+                    help="build the kernels and run the side phase, "
+                         "nothing else; prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3119,8 +3780,8 @@ def main(argv=()) -> int:
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    if args.lm_only:
-        phase_lm(dev)
+    if args.lm_only or args.side_only:
+        (phase_lm if args.lm_only else phase_side)(dev)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(card, flush=True)
         return 0
@@ -3141,6 +3802,7 @@ def main(argv=()) -> int:
     phase_decode(dev, launches)
     kernels.append(phase_kernel_decode(dev, launches))
     phase_lm(dev)
+    phase_side(dev)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

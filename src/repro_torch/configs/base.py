@@ -1,7 +1,7 @@
 """The port's configuration types: copies of ``ShapeSpec``, ``BaseConfig``,
-``LM_SHAPES``, ``LMConfig``, ``RECSYS_SHAPES``, ``RecSysConfig``,
-``COOC_SHAPES``, ``CoocConfig`` and ``replace`` from
-``repro.configs.base``.  Configs are pure data.  The port
+``LM_SHAPES``, ``LMConfig``, ``GNN_SHAPES``, ``GNNConfig``,
+``RECSYS_SHAPES``, ``RecSysConfig``, ``COOC_SHAPES``, ``CoocConfig`` and
+``replace`` from ``repro.configs.base``.  Configs are pure data.  The port
 has no mesh-sharded training, optimizer or rematerialisation of its own
 yet, so ``BaseConfig``'s distribution and optimizer knobs are carried as
 the reference's data, unread."""
@@ -139,6 +139,35 @@ class LMConfig(BaseConfig):
                    + self.first_dense_layers * dense_ff + n_moe * act_ff
                    + L * 2 * d + d)
 
+
+# -- GNN --------------------------------------------------------------------
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "train",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    ShapeSpec("minibatch_lg", "train",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout0=15, fanout1=10, d_feat=602, n_classes=41)),
+    ShapeSpec("ogb_products", "train",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100,
+                   n_classes=47)),
+    ShapeSpec("molecule", "train",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=16,
+                   n_classes=2)),
+)
+
+
+@dataclass(frozen=True)
+class GNNConfig(BaseConfig):
+    family: str = "gnn"
+    n_layers: int = 5
+    d_hidden: int = 64
+    aggregator: str = "sum"
+    learnable_eps: bool = True
+    shapes: Tuple[ShapeSpec, ...] = GNN_SHAPES
+
+
+# -- RecSys -----------------------------------------------------------------
 
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=65536)),

@@ -39,6 +39,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import topk_lower_index
 
 #: signature value of a term with no postings (min over an empty set)
@@ -187,14 +188,15 @@ def _umin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def merge_signatures(parts: Sequence[torch.Tensor], vocab_size: int,
-                     num_perm: int, device="cpu") -> torch.Tensor:
+                     num_perm: int, device="cuda") -> torch.Tensor:
     """Elementwise unsigned-min merge of per-block signatures —
     associative and commutative, so the result is invariant to ingest and
-    merge order.  Empty input: the all-:data:`SIG_EMPTY` signature of an
-    empty index, on ``device``."""
+    merge order, on the parts' device.  Empty input: the
+    all-:data:`SIG_EMPTY` signature of an empty index, on ``device`` (the
+    card unless ``"cpu"``; with no card that raises)."""
     if not parts:
         return torch.full((vocab_size, num_perm), -1, dtype=torch.int32,
-                          device=device)
+                          device=resolve_device(device))
     return functools.reduce(_umin, parts)
 
 

@@ -1,6 +1,7 @@
-"""Deterministic synthetic batches: numpy copies of
-``repro.data.pipeline.lm_batch`` and ``recsys_batch``.  A batch is a pure
-function of ``(seed, step)``, and equals the reference's bit for bit."""
+"""Deterministic synthetic data: numpy copies of
+``repro.data.pipeline.lm_batch``, ``recsys_batch`` and
+``gnn_synthetic_graph``.  A batch is a pure function of ``(seed, step)``,
+a graph of its ``seed``, and each equals the reference's bit for bit."""
 from __future__ import annotations
 
 from typing import Dict
@@ -45,4 +46,26 @@ def recsys_batch(cfg: RecSysConfig, batch: int, step: int,
         "pos": rng.integers(0, cfg.n_items, (batch, s)).astype(np.int32),
         "neg": rng.integers(0, cfg.n_items, (batch, s)).astype(np.int32),
         "mask": np.ones((batch, s), np.float32),
+    }
+
+
+def gnn_synthetic_graph(n_nodes: int, n_edges: int, d_feat: int,
+                        n_classes: int, seed: int = 0,
+                        power: float = 1.0) -> Dict[str, np.ndarray]:
+    """Random graph with power-law-ish degrees + community-correlated
+    labels."""
+    rng = np.random.default_rng(seed)
+    # preferential-attachment-flavoured endpoints
+    w = 1.0 / (np.arange(1, n_nodes + 1) ** power)
+    w /= w.sum()
+    src = rng.choice(n_nodes, size=n_edges, p=w).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    labels = (rng.integers(0, n_classes, n_nodes)).astype(np.int32)
+    x = rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    # make features weakly label-informative
+    centers = rng.standard_normal((n_classes, d_feat)).astype(np.float32)
+    x += 0.5 * centers[labels]
+    return {
+        "x": x, "edge_src": src, "edge_dst": dst, "labels": labels,
+        "label_mask": np.ones(n_nodes, np.float32),
     }

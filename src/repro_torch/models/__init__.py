@@ -1,5 +1,5 @@
-"""Models of the port: DLRM (``recsys``, dot interaction, through the
-hand-written kernel) and the decoder-only LM (``transformer`` over
-``layers`` and ``moe``).  The other side models are the next items of
-ROADMAP.md §1."""
-from repro_torch.models import layers, moe, recsys, transformer  # noqa: F401
+"""Models of the port: the recommenders (``recsys``: DeepFM, DLRM through
+the hand-written dot-interaction kernel, SASRec and BERT4Rec), GIN
+(``gnn``) and the decoder-only LM (``transformer`` over ``layers`` and
+``moe``), forward only."""
+from repro_torch.models import gnn, layers, moe, recsys, transformer  # noqa: F401

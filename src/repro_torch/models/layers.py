@@ -39,6 +39,48 @@ def draw_dense(generator: torch.Generator, shape, dtype: torch.dtype,
     return w.to(dtype)
 
 
+class ParamMaker:
+    """Frozen weights on one device in one dtype, drawn from ``generator``
+    as the reference's initialisers draw theirs, or left empty without one
+    (to be filled from the reference's pytree): ``dense(in, out)`` as
+    :func:`dense_init`, ``normal(shape, std)`` N(0, 1) x ``std`` drawn in
+    fp32; ``const(shape, value)`` is filled (norms with 1, biases with 0),
+    in ``dtype`` if given."""
+
+    def __init__(self, dtype, device, generator):
+        self.dtype, self.device, self.gen = dtype, device, generator
+
+    def dense(self, in_dim, out_dim):
+        if self.gen is None:
+            w = torch.empty((in_dim, out_dim), dtype=self.dtype,
+                            device=self.device)
+        else:
+            w = dense_init(self.gen, in_dim, out_dim, self.dtype, self.device)
+        return nn.Parameter(w, requires_grad=False)
+
+    def normal(self, shape, std: float):
+        w = torch.empty(shape, dtype=torch.float32, device=self.device)
+        if self.gen is not None:
+            w.normal_(generator=self.gen).mul_(std)
+        return nn.Parameter(w.to(self.dtype), requires_grad=False)
+
+    def const(self, shape, value, dtype=None):
+        return nn.Parameter(torch.full(shape, value, dtype=dtype or self.dtype,
+                                       device=self.device),
+                            requires_grad=False)
+
+
+def require_full_fp32(x: torch.Tensor, what: str) -> None:
+    """Refuse to run ``what``'s fp32 products on a card while TF32 is
+    allowed for them: the reference computes them in full fp32."""
+    if x.is_cuda and (torch.backends.cuda.matmul.allow_tf32 or
+                      torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{what} run in full fp32, as the reference does: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the promoted dtype of the two, as a JAX einsum gives."""
     dt = torch.promote_types(x.dtype, w.dtype)

@@ -38,8 +38,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_rope,
     assign_from_reference,
+    ParamMaker,
     attention,
-    dense_init,
     mm,
     reference_tensor,
     rmsnorm,
@@ -52,35 +52,12 @@ from repro_torch.models.layers import (
 # ---------------------------------------------------------------------------
 
 
-class _Maker:
-    """Frozen weights on one device in one dtype: ``dense(in, out)`` is
-    drawn as ``layers.dense_init`` draws it (left empty without a
-    generator), ``const(shape, value)`` is filled (norms with 1, biases
-    with 0)."""
-
-    def __init__(self, dtype, device, generator):
-        self.dtype, self.device, self.gen = dtype, device, generator
-
-    def dense(self, in_dim, out_dim):
-        if self.gen is None:
-            w = torch.empty((in_dim, out_dim), dtype=self.dtype,
-                            device=self.device)
-        else:
-            w = dense_init(self.gen, in_dim, out_dim, self.dtype, self.device)
-        return nn.Parameter(w, requires_grad=False)
-
-    def const(self, shape, value):
-        return nn.Parameter(torch.full(shape, value, dtype=self.dtype,
-                                       device=self.device),
-                            requires_grad=False)
-
-
 class Attention(nn.Module):
     """GQA: ``wq``, ``wk``, ``wv``, ``wo`` (and ``bq``, ``bk``, ``bv`` with
     ``qkv_bias``); MLA: ``wq``, ``wdkv``, ``wkr``, ``wuk``, ``wuv``,
     ``wo``."""
 
-    def __init__(self, cfg: LMConfig, mk: _Maker):
+    def __init__(self, cfg: LMConfig, mk: ParamMaker):
         super().__init__()
         d = cfg.d_model
         if cfg.mla:
@@ -107,7 +84,7 @@ class Attention(nn.Module):
 class FFN(nn.Module):
     """The dense SwiGLU FFN: ``w1``, ``w3`` (d, ff) and ``w2`` (ff, d)."""
 
-    def __init__(self, cfg: LMConfig, mk: _Maker):
+    def __init__(self, cfg: LMConfig, mk: ParamMaker):
         super().__init__()
         self.w1 = mk.dense(cfg.d_model, cfg.d_ff)
         self.w3 = mk.dense(cfg.d_model, cfg.d_ff)
@@ -117,7 +94,7 @@ class FFN(nn.Module):
 class Block(nn.Module):
     """One layer: ``ln1``, ``attn``, ``ln2``, then ``ffn`` or ``moe``."""
 
-    def __init__(self, cfg: LMConfig, is_moe: bool, mk: _Maker):
+    def __init__(self, cfg: LMConfig, is_moe: bool, mk: ParamMaker):
         super().__init__()
         self.is_moe = is_moe
         self.ln1 = mk.const((cfg.d_model,), 1.0)
@@ -148,7 +125,7 @@ class LM(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        mk = _Maker(dtype, resolve_device(device), generator)
+        mk = ParamMaker(dtype, resolve_device(device), generator)
         self.cfg = cfg
         n_dense, n_moe = _layer_counts(cfg)
         vp = cfg.padded_vocab

@@ -401,3 +401,112 @@ def test_chip_smoke_lm_only_runs_the_device_and_lm_phases(smoke, monkeypatch,
     assert calls == ["device", "lm"]
     out = capsys.readouterr().out
     assert '"ok"' not in out and "stub card, 700 W" in out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the side models
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def side_small(smoke, monkeypatch):
+    """Phase side at reduced sizes with the published widths: 1,000 rows a
+    field or items, bert4rec's sequences of 16 served in slices of 40
+    (serve_bulk 96 rows: 40, 40, 16), ogb_products and minibatch_lg on
+    small synthetic graphs (16 seeds, fanouts 15 and 10), molecule and
+    full_graph_sm as published; two timed calls a cell."""
+    monkeypatch.setattr(smoke, "SIDE_CONFIG_OVERRIDES", {
+        "deepfm": dict(vocab_per_field=1000),
+        "sasrec": dict(n_items=1000),
+        "bert4rec": dict(n_items=1000, seq_len=16)})
+    monkeypatch.setattr(smoke, "GNN_CELL_OVERRIDES", {
+        "ogb_products": dict(n_nodes=3000, n_edges=20000),
+        "minibatch_lg": dict(n_nodes=2000, n_edges=30000, batch_nodes=16)})
+    for name, value in [("SIDE_P99_BATCHES", 3),
+                        ("SIDE_BULK_SLICE", {"bert4rec": 40}),
+                        ("GNN_CALLS", dict.fromkeys(
+                            ("ogb_products", "minibatch_lg", "molecule",
+                             "full_graph_sm"), 2))]:
+        monkeypatch.setattr(smoke, name, value)
+    return smoke
+
+
+def test_chip_smoke_side_phase_rehearses_on_the_cpu(side_small, capsys):
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    side_small.phase_side(torch.device("cpu"))
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+    out = capsys.readouterr().out
+    assert "[side] arch=deepfm interaction=fm table_rows=39000 embed=10 " \
+           "mlp=400-400-400 " in out
+    assert "[side] arch=bert4rec interaction=bidir-seq table_rows=1002 " \
+           "embed=64 seq_len=16 blocks=2 heads=2 " in out
+    for arch in ("deepfm", "sasrec", "bert4rec"):
+        for cell in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            assert f"[side] arch={arch} cell={cell} " in out
+            assert f"[side] cell={arch} {cell} bytes=" in out
+        assert f"profile={arch} serve_p99 device_busy_ms=not-measured" in out
+    assert "arch=bert4rec cell=serve_bulk batch=96 rows_a_call=40 " in out
+    assert "arch=sasrec cell=serve_bulk batch=96 rows_a_call=96 " in out
+    for cell in ("ogb_products", "minibatch_lg", "molecule", "full_graph_sm"):
+        assert f"[side] arch=gin-tu cell={cell} " in out
+        assert f"[side] cell=gin-tu {cell} message_bytes=" in out
+    # the sampled subgraph keeps its fixed shape: (N_max, E_max)
+    assert "cell=minibatch_lg nodes=2656 edges=2640 d_feat=602 " in out
+    assert "cell=molecule nodes=3840 edges=8192 d_feat=16 classes=2 " \
+           "loss_fn=graph_loss " in out
+    assert "agg_nodes=64 " in out and "bits_identical_across_runs=True" in out
+    assert out.count(" max_abs_err_vs_f64=") == 9 + 2     # and the aggregate
+    assert '[side] card_vs_cpu={"deepfm": ' in out
+    assert "[side] graphs_built_side_by_side=ogb_products,minibatch_lg " in out
+    assert "[side] kernel_launches_moved=False " in out
+
+
+def _unbiased_layer_norm(x, g):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True)                    # correction=1
+    return ((xf - mu) * torch.rsqrt(var + 1e-5) * g).to(x.dtype)
+
+
+def test_chip_smoke_side_gate_fails_an_unbiased_layer_norm(side_small,
+                                                           monkeypatch):
+    """GIN with ``torch.var``'s default (unbiased) variance serves every
+    cell and passes the aggregate check, but its logits miss the float64
+    forward."""
+    from repro_torch.models import gnn as G
+    monkeypatch.setattr(G, "_layer_norm", _unbiased_layer_norm)
+    with pytest.raises(AssertionError, match="logits != float64"):
+        side_small._side_gnn(torch.device("cpu"))
+
+
+def test_chip_smoke_side_gate_fails_a_wrong_fm_term(side_small, monkeypatch):
+    """DeepFM without the FM second order's halving misses float64."""
+    from repro_torch.models import recsys as R
+    real = R.deepfm_logits
+
+    def doubled(cfg, model, batch):
+        rows = R._flat_field_ids(cfg, batch["sparse_ids"])
+        emb = model.table[rows]
+        s = emb.sum(1)
+        extra = 0.5 * (s * s - (emb * emb).sum(1)).sum(-1)
+        return real(cfg, model, batch) + extra
+
+    monkeypatch.setattr(R, "deepfm_logits", doubled)
+    with pytest.raises(AssertionError, match="deepfm serve_p99: 64 sampled "
+                                             "rows|deepfm serve_p99: 16"):
+        side_small._side_recsys(torch.device("cpu"), "deepfm")
+
+
+def test_chip_smoke_side_only_runs_the_device_and_side_phases(
+        smoke, monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "phase_device",
+                        lambda: calls.append("device") or "stub card, 700 W")
+    for name in ("phase_side", "phase_lm", "phase_parity"):
+        monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
+    assert smoke.main(["--side-only"]) == 0
+    assert calls == ["device", "phase_side"]
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "stub card, 700 W" in out

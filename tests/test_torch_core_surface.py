@@ -43,11 +43,11 @@ ROOT = Path(__file__).resolve().parents[1]
 DEPARTURES = {"dtype": "device"}
 
 #: names of the reference's data, configs and kernel-wrapper modules the
-#: port lacks because they serve the side models (ROADMAP.md §1)
+#: port lacks because they serve the side models (ROADMAP.md §1): none
+#: since the side models were ported
 SIDE_MODELS = {
-    "configs": {"GNNConfig"},
-    "data": {"build_csr", "gnn_synthetic_graph", "sample_subgraph",
-             "sampler", "subgraph_sizes"},
+    "configs": set(),
+    "data": set(),
     "ops": set(),
 }
 #: the LM path's departures (ROADMAP.md §3): an ``nn.Module`` for the
@@ -59,6 +59,12 @@ LM_WAITING = {"loss_fn", "param_specs", "cache_specs"}
 #: the private functions of the LM path the port keeps under their names
 LM_PRIVATE = {"layers": {"_attend"}, "moe": {"_position_in_expert"},
               "transformer": {"_decode_attn"}}
+#: functions of ``repro.models.recsys`` and ``repro.models.gnn`` that wait
+#: for the launch slice (ROADMAP.md §1), and the private ones the port
+#: keeps under their names
+SIDE_WAITING = {"param_specs"}
+SIDE_PRIVATE = {"recsys": {"_flat_field_ids", "_seq_encode"},
+                "gnn": {"_layer_norm"}}
 #: the reference's Pallas and XLA backends and its module imports: the
 #: port's wrappers pick the CUDA kernel or its plain version by device
 BACKENDS = {"cooccur_gemm_pallas", "dot_interaction_pallas",
@@ -167,6 +173,30 @@ def test_lm_model_surfaces_match(name):
     if name == "transformer":
         assert LM_WAITING <= _own_functions(ref)
         assert not LM_WAITING & set(dir(port))
+
+
+@pytest.mark.parametrize("name", ["recsys", "gnn"])
+def test_side_model_surfaces_match(name):
+    """Every public function of ``repro.models.<name>`` but
+    :data:`SIDE_WAITING`, and the private ones the port keeps, exists in
+    the port with every keyword parameter, up to :data:`LM_DEPARTURES`
+    (an ``nn.Module`` for the params pytree, a ``torch.Generator`` for the
+    key)."""
+    ref = importlib.import_module(f"repro.models.{name}")
+    port = importlib.import_module(f"repro_torch.models.{name}")
+    names = {n for n in _own_functions(ref) if not n.startswith("_")}
+    assert SIDE_WAITING <= names
+    names = (names - SIDE_WAITING) | SIDE_PRIVATE[name]
+    assert names - _own_functions(port) == set()
+    assert not SIDE_WAITING & set(dir(port))
+    wrong = {}
+    for n in sorted(names):
+        pp = _params(getattr(port, n))
+        gone = [a for a in _params(getattr(ref, n))
+                if a not in pp and LM_DEPARTURES.get(a) not in pp]
+        if gone:
+            wrong[n] = gone
+    assert wrong == {}
 
 
 def test_serve_surface_matches():

@@ -531,6 +531,70 @@ def test_lm_serving_on_the_card_matches_the_cpu(cuda, arch):
     assert all(n == 0 for n in ops.LAUNCHES.values())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepfm", "sasrec", "bert4rec", "gin-tu"])
+def test_side_models_on_the_card_match_the_cpu(cuda, arch):
+    """The side models at the reference's reduced_config size (1,000 rows
+    a field or items, sequences of at most 16; gin-tu as published), fp32:
+    the same weights on the card and on the CPU give the same serving
+    scores, retrieval scores and losses (GIN: node states with and without
+    edge_mask, node and graph losses) within rtol = atol = 1e-4 (fp32 sums
+    in another order, GIN's scatter-add by atomics on the card); no
+    hand-written kernel is launched."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.data import gnn_synthetic_graph, recsys_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    def close(a, b):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+    ops.reset_launches()
+    cfg = get_config(arch)
+    if arch == "gin-tu":
+        g = gnn_synthetic_graph(512, 2048, 32, 8, seed=0)
+        g["edge_mask"] = (np.arange(2048) % 4 != 3).astype(np.float32)
+        g["graph_id"] = (np.arange(512) // 64).astype(np.int32)
+        host = G.init_gin(cfg, torch.Generator().manual_seed(0), 32, 8,
+                          device="cpu")
+        card = G.GIN(cfg, 32, 8, device=cuda)
+        card.load_state_dict(host.state_dict())
+        hb = {k: torch.from_numpy(v) for k, v in g.items()}
+        cb = {k: v.to(cuda) for k, v in hb.items()}
+        for mask in (None, "edge_mask"):
+            close(G.gin_forward(cfg, card, cb["x"], cb["edge_src"],
+                                cb["edge_dst"], cb.get(mask)),
+                  G.gin_forward(cfg, host, hb["x"], hb["edge_src"],
+                                hb["edge_dst"], hb.get(mask)))
+        close(G.node_loss(cfg, card, cb)[0], G.node_loss(cfg, host, hb)[0])
+        gl = dict(hb, labels=torch.arange(8, dtype=torch.int32) % 2)
+        close(G.graph_loss(cfg, card, {k: v.to(cuda) for k, v in gl.items()}
+                           )[0], G.graph_loss(cfg, host, gl)[0])
+    else:
+        cfg = replace(cfg, vocab_per_field=1000, n_items=1000,
+                      seq_len=min(cfg.seq_len, 16))
+        host = R.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        card = type(host)(cfg, device=cuda)
+        card.load_state_dict(host.state_dict())
+        b = recsys_batch(cfg, 64, 1)
+        rng = np.random.default_rng(0)
+        if arch == "deepfm":
+            serve = retr = {"sparse_ids": b["sparse_ids"]}
+        else:
+            serve = {"seq": b["seq"], "candidates": rng.integers(
+                0, 1000, (64, 100)).astype(np.int32)}
+            retr = {"seq": b["seq"][:1],
+                    "candidates": np.arange(1002, dtype=np.int32)}
+        for fn, batch in ((R.serve_fn, serve), (R.retrieval_fn, retr),
+                          (lambda c, m, x: R.loss_fn(c, m, x)[0], b)):
+            close(fn(cfg, card, R.as_batch(batch, cuda)),
+                  fn(cfg, host, R.as_batch(batch, "cpu")))
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+
+
 def _mesh_matches_one_device(cuda, mesh):
     """Every method's batch and the whole network (both strategies, exact
     and approx) on ``mesh`` equal the unsharded context's on the card,

@@ -58,7 +58,7 @@ def test_config_is_the_references():
     assert cfg.shape("serve_bulk")["batch"] == 262144
     assert get_config("cooccur-csl").vocab_size == 65536
     with pytest.raises(KeyError):
-        get_config("deepfm")
+        get_config("dlrm-rm3")
 
 
 def test_params_from_reference_carry_every_weight(reference):
@@ -144,18 +144,30 @@ def test_init_params_draw_from_the_generator():
     assert bool(((probs > 0) & (probs < 1)).all())
 
 
-@pytest.mark.parametrize("interaction", ["fm", "self-attn-seq"])
-def test_other_interactions_are_not_ported(interaction):
+@pytest.mark.parametrize("interaction,shape", [
+    ("fm", (4,)), ("dot", (4,)), ("self-attn-seq", (4, 3)),
+    ("bidir-seq", (4, 3))])
+def test_every_interaction_is_served(interaction, shape):
+    """A small config of each interaction initialises, serves a batch
+    (probabilities, or scores against 3 candidates) and scores
+    candidates: finite values of the expected shapes."""
     cfg = RecSysConfig(name="x", interaction=interaction, n_sparse=3,
-                       vocab_per_field=4, embed_dim=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.init_params(cfg, torch.Generator(), device="cpu")
-    dlrm = replace(get_config("dlrm-rm2"), vocab_per_field=4)
-    model = R.init_params(dlrm, torch.Generator(), device="cpu")
-    batch = R.as_batch(recsys_batch(dlrm, 2, 0), "cpu")
-    for fn in (R.serve_fn, R.retrieval_fn, R.dlrm_logits):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(cfg, model, batch)
+                       n_dense=2 if interaction == "dot" else 0,
+                       vocab_per_field=5, embed_dim=4, mlp=(6,),
+                       bot_mlp=(5, 4), top_mlp=(5, 1), n_items=7,
+                       seq_len=4, n_blocks=1, n_heads=2)
+    model = R.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    batch = R.as_batch(recsys_batch(cfg, 4, 0), "cpu")
+    if "seq" in batch:
+        batch["candidates"] = torch.randint(0, 9, (4, 3))
+    out = R.serve_fn(cfg, model, batch)
+    assert out.shape == shape and bool(torch.isfinite(out).all())
+    if "seq" in batch:
+        batch = {"seq": batch["seq"][:1], "candidates": torch.arange(9)}
+    scores = R.retrieval_fn(cfg, model, batch)
+    assert scores.shape == ((4,) if len(shape) == 1 else (1, 9))
+    assert bool(torch.isfinite(scores).all())
 
 
 def test_dlrm_refuses_the_cpu_by_default(monkeypatch):

@@ -122,7 +122,7 @@ def test_partition_and_merge_order_invariance(seed, n_parts):
         merged = TS.merge_signatures([sigs[i] for i in order], vocab,
                                      num_perm)
         np.testing.assert_array_equal(to_uint32(merged), full)
-    empty = TS.merge_signatures([], vocab, num_perm)
+    empty = TS.merge_signatures([], vocab, num_perm, device="cpu")
     np.testing.assert_array_equal(
         to_uint32(empty), np.asarray(JS.merge_signatures([], vocab,
                                                          num_perm)))
@@ -195,3 +195,15 @@ def test_estimate_recall_equals_the_reference():
             == JS.estimate_recall(sigs, src, dst, valid, b=4, r=4))
     assert TS.estimate_recall(sigs, src, dst, np.zeros(50, bool), b=4,
                               r=4) == 1.0
+
+
+def test_merge_signatures_refuses_the_cpu_by_default(monkeypatch):
+    """With no parts the merge makes its all-empty signature on the card
+    unless the caller asks for the CPU; with no card that raises, as
+    every other entry point does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.merge_signatures([], 4, 8)
+    empty = TS.merge_signatures([], 4, 8, device="cpu")
+    assert empty.device.type == "cpu" and empty.shape == (4, 8)
+    assert bool((empty == TS.SIG_EMPTY).all())
