@@ -150,6 +150,28 @@ BERT4Rec and GIN at their published widths.  Phases:
                   each arch at the reference's reduced_config size on
                   the card == the port on the CPU (SIDE_CPU_TOL); no
                   kernel launch count moves
+ 16. train        training through ``repro_torch.launch.train.train``:
+                  dlrm-rm2 at full size (26 x 10^6 x 64 fp32 table, AdamW
+                  fp32 moments, batch 65,536) for 10 steps with a
+                  checkpoint at step 10 (on local disk, removed after),
+                  resumed to step 20, and 20 steps uninterrupted: the
+                  resumed run's last loss == the uninterrupted one's;
+                  kernel 4 launched once a forward pass; one step's
+                  gradients through kernel 4 == through its plain version
+                  on the card; kernel 4's backward (plain PyTorch, as the
+                  reference has no backward kernel) on 4,096 samples ==
+                  float64 on the CPU; AdamW on sampled table rows, touched
+                  and untouched by the batch, == the reference's update in
+                  float64; step ms p50 and p99, samples a second, peak
+                  memory, one profiled step and the step's bytes bound;
+                  save and restore seconds; then llama3-8b at full width
+                  and 2 of its 32 layers (fp32 weights and moments, batch
+                  4 x 1,024 tokens): a step's loss and gradients with
+                  remat on == off, 5 timed steps beside the 6ND
+                  operations bound; then every arch but cooccur-csl at
+                  the reference's reduced_config through ``train()`` on
+                  the card and on the CPU from one step-0 checkpoint:
+                  losses and step-3 weights within TRAIN_CPU_TOL
 
 Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
@@ -159,7 +181,9 @@ device, or outside a checkout, it exits non-zero before printing a result.
 ``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
 compare kernel 4 between two trees on one card, and prints no result line;
 ``--lm-only`` runs phases 1 and 14 alone and ``--side-only`` phases 1
-and 15 alone; neither prints a result line.
+and 15 alone, ``--train-only`` phases 1 and 16 alone; none of them
+prints a result line.  Every phase but 16 serves, and runs without an
+autograd graph.
 """
 from __future__ import annotations
 
@@ -302,6 +326,20 @@ QUICKSTART = [
     "text mining extracts keywords and builds co-occurrence networks",
     "network construction from an inverted index runs in real time",
 ]
+
+
+def serving(fn):
+    """A phase that serves: it runs without an autograd graph, as the
+    port's served entry points do (the model weights are trainable)."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        import torch
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def say(phase: str, **fields) -> None:
@@ -610,6 +648,7 @@ def _parity_approx(rng, ctx, df):
     return cases
 
 
+@serving
 def phase_parity(dev):
     """Both kernels against their plain versions on the card; then the
     plain methods "gemm" and "popcount" served at the mid size."""
@@ -773,6 +812,7 @@ def phase_parity(dev):
     torch.cuda.empty_cache()
 
 
+@serving
 def phase_strings(dev):
     from repro_torch.api import CoocIndex
     from repro_torch.core import build_host_index
@@ -967,6 +1007,7 @@ async def _strings_served(dev, path, mesh):
     return 8
 
 
+@serving
 def phase_csl(dev):
     """The main path at the paper's scale, once per kernel method."""
     import torch
@@ -1046,6 +1087,7 @@ def phase_csl(dev):
     return ctx, hidx, seeds, launches
 
 
+@serving
 def phase_materialize(dev, ctx, hidx, launches):
     """The whole CSL network at full width: top-16 for each of the 65,536
     terms over all 396,209 docs, through the kernel (one launch per GROUP
@@ -1204,6 +1246,7 @@ def _approx_tile_kernel(ctx, per_block):
         bytes=n_bytes, max_abs_err=0)
 
 
+@serving
 def phase_approx(dev, ctx, hidx, exact, exact_s):
     """The approximate sweep at the CSL scale, k = 16 at the defaults:
     MinHash signatures of every term (128 permutations), LSH banding on
@@ -1316,6 +1359,7 @@ def _mesh_queries(ctx, seeds, method):
     return nets, batch_ms, secs, counts, eng
 
 
+@serving
 def phase_mesh(dev, ctx, seeds, exact, exact_s, approx, approx_s,
                sig_s_unsharded):
     """The CSL index of phase csl on a mesh of MESH_SHARDS shards of the
@@ -1502,6 +1546,7 @@ def _oracle_batch(eng, want, v, what):
             raise AssertionError(f"stream {what} != host oracle, seed {s}")
 
 
+@serving
 def phase_stream(dev):
     """The streaming tier at the stream_ingest cell, through kernels 1, 2
     and 3: a window ring of CSL docs, evicting rounds that spill to a cold
@@ -1696,7 +1741,7 @@ def phase_stream(dev):
     return launches, {"ctx": ctx, "seeds": seeds}
 
 
-def _snapshot_dir(need_bytes):
+def _snapshot_dir(need_bytes, prefix="cooc-snapshot-"):
     """A fresh temporary directory on a file system with room for
     ``need_bytes`` and a tenth more: the system's temporary directory, else
     the checkout's.  Raises when neither has the room."""
@@ -1706,9 +1751,9 @@ def _snapshot_dir(need_bytes):
     for base in (tempfile.gettempdir(), str(ROOT)):
         free[base] = shutil.disk_usage(base).free
         if free[base] > 1.1 * need_bytes:
-            return tempfile.mkdtemp(prefix="cooc-snapshot-", dir=base)
+            return tempfile.mkdtemp(prefix=prefix, dir=base)
     raise RuntimeError(
-        f"no room for a {need_bytes / 1e9:.2f} GB snapshot: free bytes "
+        f"no room for {need_bytes / 1e9:.2f} GB under {prefix}: free bytes "
         f"{free}; point TMPDIR at a larger local disk")
 
 
@@ -1748,6 +1793,7 @@ def _same_state(a, b):
         raise AssertionError(f"restored context differs in {bad}")
 
 
+@serving
 def phase_snapshot(dev, state):
     """The stream phase's windowed context (97 live blocks, 8 cold blocks,
     the tag scope "rounds") sketched, its all-time approx network built,
@@ -2122,6 +2168,7 @@ async def _serve_run(dev, server, pools, gamma_hidx, ingest_blocks, rng):
     return out
 
 
+@serving
 def phase_serve(dev, state):
     """The multi-tenant server on the stream ring warm-started by the
     snapshot phase: capacity in a closed loop, then the reference serving
@@ -2265,6 +2312,7 @@ def sparse_work(masks, v):
     return active, active * postings.ROWS * v
 
 
+@serving
 def phase_kernels(dev, ctx, seeds, launches):
     """Each kernel at the main path's shapes: kernels 1 and 2 at the
     level-0, level-1 and level-2 frontiers of the first CSL batch, through
@@ -2534,6 +2582,7 @@ def say_profile(phase, what, fn):
         top_kernels=json.dumps(kernels))
 
 
+@serving
 def phase_dlrm(dev, launches):
     """dlrm-rm2 at full size (26 fields x 10^6 rows x 64 fp32) served at
     RECSYS_SHAPES' three serving cells through kernel 4."""
@@ -2663,6 +2712,7 @@ def _check_decode(got, want, dtype, what):
     return float(err.max())
 
 
+@serving
 def phase_decode(dev, launches):
     """Kernel 5 through its public wrapper at llama3-8b's decode cells,
     ragged lengths (a 0 and a 1 among them), held against the plain
@@ -2746,6 +2796,7 @@ def _fmt(ms):
     return "not-measured" if ms is None else f"{ms:.4f}"
 
 
+@serving
 def phase_kernel_dot(dev, cfg, model, batches, launches):
     """Kernel 4 at the interaction input of each DLRM cell, beside its
     plain version, its bound and ``torch.bmm``'s full Gram.  Each is timed
@@ -2810,6 +2861,7 @@ def phase_kernel_dot(dev, cfg, model, batches, launches):
     return entry
 
 
+@serving
 def phase_kernel_decode(dev, launches):
     """Kernel 5 at the decode cells with every length = S, beside its plain
     version, its bound and SDPA on (B, Hq, 1, d) queries against the
@@ -3128,6 +3180,7 @@ def _lm_card_against_cpu(dev, arch):
     torch.cuda.empty_cache()
 
 
+@serving
 def phase_lm(dev):
     """llama3-8b and deepseek-v2-lite-16b at full width and depth through
     ``DecodeServer``, decode held against prefill, then the card against
@@ -3717,6 +3770,7 @@ def _side_card_against_cpu(dev):
         tol=SIDE_CPU_TOL, sizes="reduced_config")
 
 
+@serving
 def phase_side(dev):
     """DeepFM, SASRec and BERT4Rec at their serving cells and gin-tu at
     every GNN_SHAPES cell, at full width; each held against float64, then
@@ -3747,6 +3801,467 @@ def phase_side(dev):
         rest_s=f"{secs - host_s:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+# dlrm-rm2 trained at full size at RECSYS_SHAPES' train cell: run 1 takes
+# DLRM_TRAIN_STEPS steps and saves, run 2 resumes to twice as many, run 3
+# takes them uninterrupted
+DLRM_TRAIN_BATCH = 65_536
+DLRM_TRAIN_STEPS = 10
+DLRM_TIMED_STEPS = 10          # steps timed one by one after the runs
+DLRM_GATE_ROWS = 64            # table rows of each kind held to float64 AdamW
+DOT_GRAD_SAMPLES = 4_096       # kernel 4's backward against float64 on these
+DOT_GRAD_TOL = 1e-5            # of the float64 gradient's largest entry
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6    # kernel 4 against plain
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+# AdamW's update of sampled rows against float64: p within ADAMW_ATOL, the
+# moments within ADAMW_M_ATOL of their largest sampled entry
+ADAMW_RTOL, ADAMW_ATOL, ADAMW_M_ATOL = 1e-5, 1e-7, 1e-6
+# llama3-8b at full width, cut to LM_TRAIN_LAYERS of its 32 layers: AdamW's
+# fp32 state of the whole model (8.03 B parameters x 16 bytes) is 128 GB
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 4, 1024, 5
+LM_TRAIN_OVERRIDES = {}        # config fields (none: the published widths)
+LM_REMAT_RTOL, LM_REMAT_ATOL = 1e-5, 1e-9
+# every arch but cooccur-csl at the reference's reduced_config, on the card
+# and on the CPU from one step-0 checkpoint
+TRAIN_ARCHS = None             # None: all of them
+TRAIN_ARCH_STEPS = 3
+TRAIN_CPU_TOL = 1e-4
+
+
+def _timed_each(module, name, times):
+    """Wrap ``module.name`` so that each call appends its host seconds
+    (ending in a synchronize) to ``times``; returns the undo."""
+    import torch
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, timed)
+    return lambda: setattr(module, name, fn)
+
+
+def _dlrm_train_runs(dev, cfg, state_bytes):
+    """Runs 1-3 through ``train(reduce=False)``: the resumed run's last
+    loss == the uninterrupted run's; kernel 4 launched once a step."""
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TL
+    from repro_torch.train import checkpoint
+    n = DLRM_TRAIN_STEPS
+    d = _snapshot_dir(2 * state_bytes, prefix="dlrm-train-")
+    saves, restores = [], []
+    undo = [_timed_each(checkpoint, "save", saves),
+            _timed_each(checkpoint, "restore", restores)]
+    before = ops.LAUNCHES["dot_interaction"]
+    t0 = time.perf_counter()
+    try:
+        kw = dict(batch=DLRM_TRAIN_BATCH, reduce=False, device=dev,
+                  log_every=n)
+        r1 = TL.train(cfg.name, steps=n, ckpt_dir=d, ckpt_every=10 ** 9,
+                      **kw)
+        ckpt_gb = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file()) / 1e9
+        r2 = TL.train(cfg.name, steps=2 * n, ckpt_dir=d, ckpt_every=10 ** 9,
+                      **kw)
+        r3 = TL.train(cfg.name, steps=2 * n, **kw)
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(d, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES["dot_interaction"] - before
+    if launches != 4 * n:
+        raise AssertionError(f"dlrm train: kernel 4 launched {launches} "
+                             f"times in {4 * n} forward passes")
+    if not np.isclose(r2["loss"], r3["loss"], rtol=RESUME_RTOL,
+                      atol=RESUME_ATOL) or not np.isfinite(r1["loss"]):
+        raise AssertionError(f"dlrm train: resumed loss {r2['loss']!r} != "
+                             f"uninterrupted {r3['loss']!r}")
+    if len(saves) != 2 or len(restores) != 1:
+        raise AssertionError(f"dlrm train: {len(saves)} saves, "
+                             f"{len(restores)} restores")
+    say("train", arch=cfg.name, runs=f"{n},resume-to-{2 * n},{2 * n}",
+        batch=DLRM_TRAIN_BATCH, loss_run1=repr(r1["loss"]),
+        loss_resumed=repr(r2["loss"]), loss_uninterrupted=repr(r3["loss"]),
+        resume_equal=True, rtol=RESUME_RTOL, dot_launches=launches,
+        forward_passes=4 * n, save_s=" ".join(f"{t:.2f}" for t in saves),
+        restore_s=f"{restores[0]:.2f}", checkpoint_gb=f"{ckpt_gb:.3f}",
+        seconds=f"{secs:.1f}")
+
+
+def _check_kernel_grads(cfg, model, loss_fn, batch):
+    """One full-size step's gradients through kernel 4 == through its plain
+    version on the same device, and kernel 4 launched once."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train.step import loss_and_grads
+    before = ops.LAUNCHES["dot_interaction"]
+    _, _, g_kernel = loss_and_grads(loss_fn, model, batch)
+    real = ops._dot_interaction_forward
+    ops._dot_interaction_forward = ref.dot_interaction_ref
+    try:
+        _, _, g_plain = loss_and_grads(loss_fn, model, batch)
+    finally:
+        ops._dot_interaction_forward = real
+    if ops.LAUNCHES["dot_interaction"] - before != 1:
+        raise AssertionError("dlrm train: the gradient pair launched kernel 4 "
+                             f"{ops.LAUNCHES['dot_interaction'] - before} "
+                             "times")
+    err = 0.0
+    for name, g in g_plain.items():
+        err = max(err, float((g_kernel[name] - g).abs().max()))
+        if not torch.allclose(g_kernel[name], g, rtol=TRAIN_GRAD_RTOL,
+                              atol=TRAIN_GRAD_ATOL):
+            raise AssertionError(f"dlrm train: {name}'s gradient through "
+                                 "kernel 4 != through the plain version")
+    return err, g_kernel
+
+
+def _check_dot_backward(dev, cfg, model, batch):
+    """Kernel 4's backward (plain PyTorch on the card) on DOT_GRAD_SAMPLES
+    samples of the step's interaction input against float64 on the CPU,
+    then timed at the full batch beside its bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import recsys as R
+    with torch.no_grad():
+        _, x = R.interaction_input(cfg, model, batch)
+    b, f, e = x.shape
+    p = f * (f - 1) // 2
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn((b, p), generator=gen, device=dev)
+    s = min(DOT_GRAD_SAMPLES, b)
+    got = ref.dot_interaction_grad_ref(x[:s], g[:s]).cpu().double()
+    want = ref.dot_interaction_grad_ref(x[:s].cpu().double(),
+                                        g[:s].cpu().double())
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= DOT_GRAD_TOL:
+        raise AssertionError(f"kernel 4 backward != float64: max |diff| / "
+                             f"max |dX| = {err:.3g} > {DOT_GRAD_TOL}")
+    ms = cuda_ms(lambda: ref.dot_interaction_grad_ref(x, g), 5)
+    n_bytes = 2 * b * f * e * 4 + b * p * 4
+    n_ops = 2 * b * f * f * e
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops, FP32_OPS_PER_S)
+    say("train", kernel="dot_interaction_backward", route="plain-pytorch",
+        samples_checked=s, max_rel_err_vs_f64=f"{err:.3g}",
+        tol=DOT_GRAD_TOL, batch=b, fields=f, embed=e, ms=f"{ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bytes=n_bytes,
+        flops=n_ops)
+    return {"ms": ms, "bound_ms": bound_ms, "max_rel_err": err}
+
+
+def _adamw_rows_f64(cfg, before, grads, gn, count):
+    """The reference's AdamW on sampled rows in float64 (clip by the global
+    norm, the schedule at ``count + 1``): (p, m, v)."""
+    import math
+    c = count + 1
+    warm = min(c / max(cfg.warmup_steps, 1), 1.0)
+    t = min(max((c - cfg.warmup_steps) / 10000.0, 0.0), 1.0)
+    lr = cfg.learning_rate * warm * (0.55 + 0.45 * math.cos(math.pi * t))
+    scale = min(1.0, cfg.grad_clip / max(gn, 1e-9)) if cfg.grad_clip > 0 \
+        else 1.0
+    b1, b2, eps = 0.9, 0.95, 1e-8
+    p, m, v = before
+    g = grads * scale
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    step = (m / (1 - b1 ** c)) / (np.sqrt(v / (1 - b2 ** c)) + eps)
+    return p - lr * (step + cfg.weight_decay * p), m, v
+
+
+def _check_adamw_rows(cfg, model, opt, st, loss_fn, batch):
+    """One update at full size held to float64 on DLRM_GATE_ROWS table
+    rows the batch touches and as many it does not (their gradient is 0,
+    but their moments decay and their weights move): the dense update of
+    the reference, not a sparse-row one, and its schedule and clip, not
+    ``torch.optim.AdamW``'s."""
+    import torch
+    from repro_torch.models import recsys as R
+    from repro_torch.train.step import apply_update, loss_and_grads
+    _, _, grads = loss_and_grads(loss_fn, model, batch)
+    gn = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                              for g in grads.values())))
+    touched = torch.zeros(model.table.shape[0], dtype=torch.bool,
+                          device=model.table.device)
+    touched[R._flat_field_ids(cfg, batch["sparse_ids"]).reshape(-1)] = True
+    seen = (st["m"]["table"] != 0).any(dim=1)
+    rows = []
+    for want in (touched & seen, ~touched & seen):
+        idx = torch.nonzero(want)[:, 0]
+        if idx.numel() < DLRM_GATE_ROWS:
+            raise AssertionError("dlrm train: too few rows for the AdamW "
+                                 "gate")
+        pick = torch.linspace(0, idx.numel() - 1, DLRM_GATE_ROWS).long()
+        rows.append(idx[pick.to(idx.device)])
+    rows = torch.cat(rows)
+
+    def host(t):
+        return t[rows].detach().double().cpu().numpy()
+
+    before = (host(model.table), host(st["m"]["table"]),
+              host(st["v"]["table"]))
+    want = _adamw_rows_f64(cfg, before, host(grads["table"]), gn,
+                           int(st["count"]))
+    st, stats = apply_update(opt, model, st, grads)
+    got = (host(model.table), host(st["m"]["table"]),
+           host(st["v"]["table"]))
+    for name, a, w in zip(("p", "m", "v"), got, want):
+        # the moments may cancel to near 0: their atol scales with them
+        atol = ADAMW_ATOL if name == "p" else ADAMW_M_ATOL * np.abs(w).max()
+        if not np.allclose(a, w, rtol=ADAMW_RTOL, atol=atol):
+            raise AssertionError(
+                f"dlrm train: AdamW's {name} != the reference's in float64 "
+                f"on sampled rows (max |diff| {np.abs(a - w).max():.3g})")
+    moved = np.abs(got[0][DLRM_GATE_ROWS:] - before[0][DLRM_GATE_ROWS:]
+                   ).max()
+    return st, float(moved)
+
+
+def _dlrm_train_timed(dev, cfg):
+    """The gradient gates, then DLRM_TIMED_STEPS steps timed one by one,
+    one profiled, and AdamW held to float64 on sampled rows."""
+    import torch
+    from repro_torch import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TL
+    from repro_torch.train import make_optimizer, make_train_step
+    model = TL.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    loss_fn = TL.make_loss(cfg)
+    batch_fn = TL.make_batch_fn(cfg, DLRM_TRAIN_BATCH, 0, dev)
+    grad_err, g = _check_kernel_grads(cfg, model, loss_fn, batch_fn(0))
+    del g
+    backward = _check_dot_backward(dev, cfg, model, batch_fn(0))
+    opt = make_optimizer(cfg)
+    st = opt.init(pytree.module_tree(model))
+    step = make_train_step(cfg, loss_fn, opt)
+    state = {"model": model, "st": st}
+
+    def run(s):
+        b = batch_fn(s)
+        state["model"], state["st"], m = step(state["model"], state["st"], b)
+        return m
+
+    run(1)                                   # first use: allocator
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.LAUNCHES["dot_interaction"]
+    ms = []
+    for s in range(2, 2 + DLRM_TIMED_STEPS):
+        ms.append(_timed_call(lambda: float(run(s)["loss"]))[1])
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.LAUNCHES["dot_interaction"] - before
+    if launches != DLRM_TIMED_STEPS:
+        raise AssertionError(f"dlrm train: {launches} kernel 4 launches in "
+                             f"{DLRM_TIMED_STEPS} steps")
+    n_params = sum(p.numel() for p in model.parameters())
+    pb = n_params * 4
+    floor_bytes = 7 * pb          # read p, g, m, v; write p, m, v
+    grad_bytes = 4 * pb           # zero-fill, norm, clip read + write
+    p50, p99 = np.percentile(ms, [50, 99])
+    say("train", arch=cfg.name, cell="train", batch=DLRM_TRAIN_BATCH,
+        params=n_params, steps_timed=len(ms), step_ms_p50=f"{p50:.3f}",
+        step_ms_p99=f"{p99:.3f}",
+        samples_per_s=f"{DLRM_TRAIN_BATCH * len(ms) / (sum(ms) / 1e3):.1f}",
+        peak_gb=f"{peak / 1e9:.3f}",
+        bytes_floor=floor_bytes,
+        bound_ms=f"{floor_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
+        bytes_with_grad_passes=floor_bytes + grad_bytes,
+        bound_with_grad_passes_ms=
+        f"{(floor_bytes + grad_bytes) / HBM_BYTES_PER_S * 1e3:.3f}",
+        grad_kernel_vs_plain_max_abs=f"{grad_err:.3g}",
+        grad_rtol=TRAIN_GRAD_RTOL, grad_atol=TRAIN_GRAD_ATOL)
+    prof = device_profile(lambda: run(99), top=12)
+    if prof is None:
+        say("train", profile="dlrm-rm2 step", device_busy_ms="not-measured")
+    else:
+        wall_ms, busy, kernels = prof
+        say("train", profile="dlrm-rm2 step", wall_ms=f"{wall_ms:.4f}",
+            device_busy_ms=f"{busy:.4f}",
+            idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}",
+            top_kernels=json.dumps(kernels))
+    st, moved = _check_adamw_rows(cfg, state["model"], opt, state["st"],
+                                  loss_fn, batch_fn(100))
+    say("train", adamw_vs_f64_rows=2 * DLRM_GATE_ROWS, rtol=ADAMW_RTOL,
+        atol=ADAMW_ATOL, untouched_rows_moved=f"{moved:.3g}")
+    del state, st, model, opt
+    return {"step_ms_p50": p50, "backward": backward}
+
+
+def _lm_train(dev):
+    """llama3-8b at full width, LM_TRAIN_LAYERS layers, fp32 weights and
+    AdamW moments: a step's loss and gradients with remat on and off, then
+    LM_TRAIN_STEPS timed steps."""
+    import torch
+    from repro_torch import pytree
+    from repro_torch.configs import get_config, replace
+    from repro_torch.launch import train as TL
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.step import loss_and_grads
+    cfg = replace(get_config("llama3-8b"),
+                  **{"n_layers": LM_TRAIN_LAYERS, **LM_TRAIN_OVERRIDES})
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = TL.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    batch_fn = TL.make_batch_fn(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+    b0 = batch_fn(0)
+    runs = {}
+    for remat in (True, False):
+        c = replace(cfg, remat=remat)
+        runs[remat] = loss_and_grads(lambda m, b: T.loss_fn(c, m, b), model,
+                                     b0)
+    (l_on, _, g_on), (l_off, _, g_off) = runs[True], runs[False]
+    if not np.isclose(float(l_on), float(l_off), rtol=LM_REMAT_RTOL,
+                      atol=0):
+        raise AssertionError(f"lm train: remat loss {float(l_on)!r} != "
+                             f"{float(l_off)!r}")
+    for name, g in g_off.items():
+        if not torch.allclose(g_on[name], g, rtol=LM_REMAT_RTOL,
+                              atol=LM_REMAT_ATOL):
+            raise AssertionError(f"lm train: {name}'s gradient with remat "
+                                 "!= without")
+    del runs, g_on, g_off
+    opt = make_optimizer(cfg)
+    st = opt.init(pytree.module_tree(model))
+    step = make_train_step(cfg, TL.make_loss(cfg), opt)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for s in range(LM_TRAIN_STEPS):
+        b = batch_fn(s)
+        (model, st, m), t = _timed_call(lambda: step(model, st, b))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm train: losses {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    n_ops = 6 * n_params * tokens
+    bound_ms = n_ops / FP32_OPS_PER_S * 1e3
+    steady = ms[1:] or ms
+    med = float(np.median(steady))
+    say("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params, batch=LM_TRAIN_BATCH,
+        seq=LM_TRAIN_SEQ, remat=cfg.remat, remat_gate=True,
+        rtol=LM_REMAT_RTOL, steps=LM_TRAIN_STEPS,
+        step_ms=" ".join(f"{t:.1f}" for t in ms), step_ms_median=f"{med:.1f}",
+        tokens_per_s=f"{tokens / (med / 1e3):.1f}",
+        peak_gb=f"{peak / 1e9:.3f}", flops_6nd=n_ops,
+        bound_ms=f"{bound_ms:.1f}", bound_by="operations",
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}")
+    del model, st, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_card_against_cpu(dev):
+    """Each arch at the reference's reduced_config through ``train()`` on
+    the card and on the CPU, both resuming one step-0 checkpoint of
+    CPU-drawn weights: the losses and the step-3 weights agree.  (The bf16
+    moments of qwen and kimi may round a last-bit difference to the
+    neighbouring bf16 value, so the state is not held to 1e-4.)"""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import pytree
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch import train as TL
+    from repro_torch.train import checkpoint, make_optimizer
+    archs = TRAIN_ARCHS or [a for a in list_archs() if a != "cooccur-csl"]
+    out = {}
+    for arch in archs:
+        cfg = TL.reduced_config(get_config(arch))
+        model = TL.init_params(cfg, torch.Generator().manual_seed(1),
+                               device="cpu")
+        params = pytree.module_tree(model)
+        tmpl = (params, make_optimizer(cfg).init(params))
+        d = tempfile.mkdtemp(prefix="train-cpu-")
+        try:
+            for where in ("card", "cpu"):
+                checkpoint.save(f"{d}/{where}", 0, tmpl)
+            r_card = TL.train(arch, steps=TRAIN_ARCH_STEPS,
+                              ckpt_dir=f"{d}/card", device=dev,
+                              log_every=100)
+            r_cpu = TL.train(arch, steps=TRAIN_ARCH_STEPS,
+                             ckpt_dir=f"{d}/cpu", device="cpu",
+                             log_every=100)
+            (card, _), _ = checkpoint.restore(f"{d}/card", tmpl,
+                                              device="cpu")
+            (host, _), _ = checkpoint.restore(f"{d}/cpu", tmpl, device="cpu")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        if not np.isclose(r_card["loss"], r_cpu["loss"], rtol=TRAIN_CPU_TOL,
+                          atol=TRAIN_CPU_TOL):
+            raise AssertionError(f"{arch}: card loss {r_card['loss']!r} != "
+                                 f"CPU loss {r_cpu['loss']!r}")
+        err = 0.0
+        for (path, a), (_, w) in zip(pytree.flatten_with_path(card),
+                                     pytree.flatten_with_path(host)):
+            a, w = a.double(), w.double()
+            if not torch.allclose(a, w, rtol=TRAIN_CPU_TOL,
+                                  atol=TRAIN_CPU_TOL):
+                raise AssertionError(f"{arch}: card {pytree.keystr(path)} "
+                                     "!= CPU after training")
+            err = max(err, float((a - w).abs().max()))
+        out[arch] = {"loss_card": round(r_card["loss"], 6),
+                     "loss_cpu": round(r_cpu["loss"], 6),
+                     "max_abs_diff": float(f"{err:.3g}")}
+    say("train", card_vs_cpu=json.dumps(out), steps=TRAIN_ARCH_STEPS,
+        tol=TRAIN_CPU_TOL)
+
+
+def phase_train(dev):
+    """Training: dlrm-rm2 at full size through ``train()`` (resume and
+    checkpoints), kernel 4 under autograd against its plain version, its
+    backward against float64, AdamW against float64; llama3-8b at full
+    width and LM_TRAIN_LAYERS layers; every arch on the card against the
+    CPU at reduced size.  Returns kernel 4's launches in this phase."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = TL.get_config("dlrm-rm2")
+    f, v, e = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
+    state_bytes = 3 * 4 * f * v * e          # p, m, v of the table
+    ops.reset_launches()
+    say("train", start_allocated_gb=
+        f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        matmul_precision=torch.get_float32_matmul_precision(),
+        dlrm_rows_per_field=v, dlrm_state_gb=f"{state_bytes / 1e9:.3f}")
+    _dlrm_train_runs(dev, cfg, state_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = _dlrm_train_timed(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _lm_train(dev)
+    _train_card_against_cpu(dev)
+    launches = ops.LAUNCHES["dot_interaction"]
+    if launches == 0:
+        raise AssertionError("the train phase never launched kernel 4")
+    say("train", dot_interaction_launches=launches,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return {"launches": launches, **timed}
+
+
 def main(argv=()) -> int:
     import argparse
     import torch
@@ -3759,6 +4274,9 @@ def main(argv=()) -> int:
                          "else; prints no result line")
     ap.add_argument("--side-only", action="store_true",
                     help="build the kernels and run the side phase, "
+                         "nothing else; prints no result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build the kernels and run the train phase, "
                          "nothing else; prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3779,6 +4297,11 @@ def main(argv=()) -> int:
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    if args.train_only:
+        phase_train(dev)
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(card, flush=True)
         return 0
     if args.lm_only or args.side_only:
         (phase_lm if args.lm_only else phase_side)(dev)
@@ -3803,6 +4326,11 @@ def main(argv=()) -> int:
     kernels.append(phase_kernel_decode(dev, launches))
     phase_lm(dev)
     phase_side(dev)
+    train = phase_train(dev)
+    dot = next(k for k in kernels if k["name"] == "dot_interaction")
+    dot.update(train_launches=train["launches"],
+                       backward_ms=train["backward"]["ms"],
+                       backward_bound_ms=train["backward"]["bound_ms"])
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
 """The port's configuration types: copies of ``ShapeSpec``, ``BaseConfig``,
 ``LM_SHAPES``, ``LMConfig``, ``GNN_SHAPES``, ``GNNConfig``,
 ``RECSYS_SHAPES``, ``RecSysConfig``, ``COOC_SHAPES``, ``CoocConfig`` and
-``replace`` from ``repro.configs.base``.  Configs are pure data.  The port
-has no mesh-sharded training, optimizer or rematerialisation of its own
-yet, so ``BaseConfig``'s distribution and optimizer knobs are carried as
-the reference's data, unread."""
+``replace`` from ``repro.configs.base``.  Configs are pure data.  The
+port's training reads ``BaseConfig``'s optimizer, microbatching and
+rematerialisation knobs; it has no mesh-sharded training yet, so the
+distribution knobs (``fsdp``, ``grad_compression``) are carried as the
+reference's data, unread."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,7 +32,8 @@ class BaseConfig:
     name: str = "base"
     family: str = "base"  # lm | gnn | recsys | cooccur
     shapes: Tuple[ShapeSpec, ...] = ()
-    # distribution and optimizer knobs of the reference (unread here)
+    # distribution and optimizer knobs of the reference (fsdp and
+    # grad_compression unread here)
     fsdp: bool = False
     microbatches: int = 1
     remat: bool = True

@@ -199,19 +199,45 @@ def cooccur_gemm(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
     return cooccur_counts(x_l, x_r).to(torch.float32)
 
 
-def dot_interaction(x: torch.Tensor) -> torch.Tensor:
-    """DLRM dot interaction: x (B, F, E) fp32 or bf16 -> (B, F (F - 1) / 2),
-    the strict lower triangle of each sample's Gram matrix, row-major over
-    i > j, summed in fp32, in x's dtype.  Mirrors
-    ``repro.kernels.ops.dot_interaction``; any B, nothing padded."""
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, F, E), got shape {tuple(x.shape)}")
+def _dot_interaction_forward(x: torch.Tensor) -> torch.Tensor:
     if _on_cuda(x):
         from repro_torch.kernels.dot_interaction import dot_interaction_cuda
         out = dot_interaction_cuda(x)
         _count("dot_interaction")
         return out
     return ref.dot_interaction_ref(x)
+
+
+class DotInteraction(torch.autograd.Function):
+    """Kernel 4 under autograd: the forward is :func:`dot_interaction`'s
+    (the kernel on a CUDA tensor, its plain version on the CPU), the
+    backward :func:`ref.dot_interaction_grad_ref` on either device.  The
+    reference has no backward kernel (and its Pallas call no reverse-mode
+    rule), so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _dot_interaction_forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return ref.dot_interaction_grad_ref(x, g)
+
+
+def dot_interaction(x: torch.Tensor) -> torch.Tensor:
+    """DLRM dot interaction: x (B, F, E) fp32 or bf16 -> (B, F (F - 1) / 2),
+    the strict lower triangle of each sample's Gram matrix, row-major over
+    i > j, summed in fp32, in x's dtype.  Mirrors
+    ``repro.kernels.ops.dot_interaction``; any B, nothing padded.  Where
+    autograd records x, the call goes through :class:`DotInteraction`;
+    either way :data:`LAUNCHES` counts the forward launches only."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, F, E), got shape {tuple(x.shape)}")
+    if x.requires_grad and torch.is_grad_enabled():
+        return DotInteraction.apply(x)
+    return _dot_interaction_forward(x)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,

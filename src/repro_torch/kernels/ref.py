@@ -160,18 +160,40 @@ def dot_interaction_ref(x: torch.Tensor, *,
                         chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """DLRM dot interaction: x (B, F, E) -> (B, F (F - 1) / 2), the strict
     lower triangle of each sample's Gram matrix, row-major over i > j,
-    accumulated in fp32 and returned in x's dtype (the contract of
-    ``repro.kernels.ref.dot_interaction_ref``).  Samples go through in
-    chunks whose (chunk, F, F) fp32 Gram stays under ``chunk_bytes``;
-    chunking changes no result."""
+    accumulated in fp32 (float64 for a float64 x) and returned in x's
+    dtype (the contract of ``repro.kernels.ref.dot_interaction_ref``).
+    Samples go through in chunks whose (chunk, F, F) fp32 Gram stays
+    under ``chunk_bytes``; chunking changes no result."""
     b, f, _ = x.shape
     ii, jj = torch.tril_indices(f, f, offset=-1, device=x.device)
     out = torch.empty((b, ii.numel()), dtype=x.dtype, device=x.device)
     step = max(1, chunk_bytes // max(1, 4 * f * f))
     for s0 in range(0, b, step):
-        xf = x[s0:s0 + step].to(torch.float32)
+        xf = x[s0:s0 + step].to(torch.promote_types(x.dtype, torch.float32))
         gram = torch.bmm(xf, xf.transpose(1, 2))
         out[s0:s0 + step] = gram[:, ii, jj].to(x.dtype)
+    return out
+
+
+def dot_interaction_grad_ref(x: torch.Tensor, g: torch.Tensor, *,
+                             chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """The gradient of :func:`dot_interaction_ref` with respect to x: for
+    each sample ``dX = (G + G^T) X``, G the (F, F) matrix that holds ``g``
+    (B, F (F - 1) / 2) at the strict lower triangle (i > j, row-major, as
+    the forward orders its pairs) and zero elsewhere.  Accumulated in fp32
+    (float64 for a float64 x) and returned in x's dtype; chunked as the
+    forward is."""
+    b, f, e = x.shape
+    ii, jj = torch.tril_indices(f, f, offset=-1, device=x.device)
+    out = torch.empty_like(x)
+    acc = torch.promote_types(x.dtype, torch.float32)   # float64 stays
+    step = max(1, chunk_bytes // max(1, 4 * f * max(f, e)))
+    for s0 in range(0, b, step):
+        gc = g[s0:s0 + step].to(acc)
+        gm = torch.zeros((gc.shape[0], f, f), dtype=acc, device=x.device)
+        gm[:, ii, jj] = gc
+        gm = gm + gm.transpose(1, 2)
+        out[s0:s0 + step] = torch.bmm(gm, x[s0:s0 + step].to(acc)).to(x.dtype)
     return out
 
 

@@ -1,5 +1,5 @@
 """GIN (Graph Isomorphism Network) by gather and scatter-add message
-passing: the port of ``repro.models.gnn``, forward only.
+passing: the port of ``repro.models.gnn``, differentiable.
 
 GIN update: h' = LN(relu(MLP((1 + eps) * h + sum_{j in N(i)} h_j))), with
 LayerNorm where the original GIN has BatchNorm (the reference's
@@ -11,9 +11,10 @@ its value, may change from run to run; on the CPU it adds in edge order.
 ``edge_mask`` zeroes the padded edges of a fixed-shape sampled subgraph.
 
 The fp32 products run in full fp32 (refused on a card while TF32 is
-allowed).  ``learnable_eps`` matters only to a gradient, which this slice
-does not port: the forward reads ``eps`` either way, as the reference's.
-Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
+allowed).  ``learnable_eps`` matters only to a gradient: the forward reads
+``eps`` either way, and without it ``eps`` is detached (the reference's
+``stop_gradient``), so its gradient is zero.  Everything runs on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import pytree
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (ParamMaker, assign_from_reference, mm,
@@ -88,6 +90,14 @@ def params_from_reference(cfg: GNNConfig, params: Mapping,
     return model
 
 
+def params_to_reference(cfg: GNNConfig, model: GIN):
+    """The inverse of :func:`params_from_reference`: the reference's
+    ``init_gin`` pytree of the module's weights, as detached tensors that
+    share their storage (``{"layers": [...], "out", "out_b"}``: the
+    parameters' dotted names are the pytree's paths)."""
+    return pytree.module_tree(model)
+
+
 def _layer_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """LayerNorm without a bias, over the population variance (``jnp.var``;
     ``torch.var`` needs ``correction=0`` for it)."""
@@ -109,7 +119,6 @@ def _aggregate(h: torch.Tensor, edge_src: torch.Tensor,
     return agg.index_add_(0, edge_dst, msg)
 
 
-@torch.no_grad()
 def gin_forward(cfg: GNNConfig, model: GIN, x: torch.Tensor,
                 edge_src: torch.Tensor, edge_dst: torch.Tensor,
                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -119,7 +128,8 @@ def gin_forward(cfg: GNNConfig, model: GIN, x: torch.Tensor,
     h = x
     for lp in model.layers:
         agg = _aggregate(h, edge_src, edge_dst, edge_mask)
-        z = (1.0 + lp.eps).to(h.dtype) * h + agg
+        eps = lp.eps if cfg.learnable_eps else lp.eps.detach()
+        z = (1.0 + eps).to(h.dtype) * h + agg
         del agg
         a = torch.relu(mm(z, lp.w1) + lp.b1)
         del z
@@ -128,12 +138,10 @@ def gin_forward(cfg: GNNConfig, model: GIN, x: torch.Tensor,
     return h
 
 
-@torch.no_grad()
 def node_logits(cfg: GNNConfig, model: GIN, h: torch.Tensor) -> torch.Tensor:
     return mm(h, model.out) + model.out_b
 
 
-@torch.no_grad()
 def graph_logits(cfg: GNNConfig, model: GIN, h: torch.Tensor,
                  graph_id: torch.Tensor, n_graphs: int) -> torch.Tensor:
     """Sum-pool each graph's node rows, then classify: (n_graphs, C)."""
@@ -159,13 +167,12 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     return lse - gold, hit
 
 
-@torch.no_grad()
 def node_loss(cfg: GNNConfig, model: GIN,
               batch: Mapping[str, torch.Tensor]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: x (N, F), edge_src / edge_dst (E,), labels (N,), label_mask
     (N,), optionally edge_mask (E,) -> the masked mean cross-entropy and
-    accuracy (values only: no gradient)."""
+    accuracy."""
     h = gin_forward(cfg, model, batch["x"], batch["edge_src"],
                     batch["edge_dst"], batch.get("edge_mask"))
     logits = node_logits(cfg, model, h).to(torch.float32)
@@ -177,7 +184,6 @@ def node_loss(cfg: GNNConfig, model: GIN,
     return loss, {"loss": loss, "acc": acc}
 
 
-@torch.no_grad()
 def graph_loss(cfg: GNNConfig, model: GIN,
                batch: Mapping[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

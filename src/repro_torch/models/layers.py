@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
                dtype: torch.dtype, device) -> torch.Tensor:
@@ -40,7 +42,7 @@ def draw_dense(generator: torch.Generator, shape, dtype: torch.dtype,
 
 
 class ParamMaker:
-    """Frozen weights on one device in one dtype, drawn from ``generator``
+    """Trainable weights on one device in one dtype, drawn from ``generator``
     as the reference's initialisers draw theirs, or left empty without one
     (to be filled from the reference's pytree): ``dense(in, out)`` as
     :func:`dense_init`, ``normal(shape, std)`` N(0, 1) x ``std`` drawn in
@@ -56,18 +58,17 @@ class ParamMaker:
                             device=self.device)
         else:
             w = dense_init(self.gen, in_dim, out_dim, self.dtype, self.device)
-        return nn.Parameter(w, requires_grad=False)
+        return nn.Parameter(w)
 
     def normal(self, shape, std: float):
         w = torch.empty(shape, dtype=torch.float32, device=self.device)
         if self.gen is not None:
             w.normal_(generator=self.gen).mul_(std)
-        return nn.Parameter(w.to(self.dtype), requires_grad=False)
+        return nn.Parameter(w.to(self.dtype))
 
     def const(self, shape, value, dtype=None):
         return nn.Parameter(torch.full(shape, value, dtype=dtype or self.dtype,
-                                       device=self.device),
-                            requires_grad=False)
+                                       device=self.device))
 
 
 def require_full_fp32(x: torch.Tensor, what: str) -> None:
@@ -98,9 +99,12 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
 # -- rotary ------------------------------------------------------------------
 
 
-def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(dim: int, theta: float, device="cuda") -> torch.Tensor:
+    """The (dim / 2,) fp32 rotary frequencies, on ``device`` (the card
+    unless the caller asks for the CPU)."""
     return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
-                                         device=device) / dim))
+                                         device=resolve_device(device))
+                            / dim))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -187,7 +191,9 @@ def reference_tensor(a) -> torch.Tensor:
     """A writable host tensor of a reference leaf (numpy, or a JAX array
     converted with ``np.asarray``), bf16 included: numpy has no bf16 of its
     own, so those leaves arrive as ``ml_dtypes.bfloat16`` and are carried
-    across bit for bit."""
+    across bit for bit.  A tensor is taken as it is (detached)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a.view(np.int16))).view(

@@ -43,7 +43,7 @@ class MoE(nn.Module):
         def weight(*shape, dt=dtype):
             w = (torch.empty(shape, dtype=dt, device=dev) if generator is None
                  else draw_dense(generator, shape, dt, dev))
-            return nn.Parameter(w, requires_grad=False)
+            return nn.Parameter(w)
 
         self.router = weight(d_model, n_experts, dt=torch.float32)
         self.w1 = weight(n_experts, d_model, d_ff)

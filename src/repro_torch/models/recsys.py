@@ -17,11 +17,14 @@ layout (``x @ w + b``).
   interaction input; the dot interaction (kernel 4,
   :func:`repro_torch.kernels.ops.dot_interaction`) gives its
   (F + 1) F / 2 pairs, and the top MLP maps [dense vector, pairs] to one
-  logit.  The interaction input is one preallocated tensor: a single
-  ``index_select`` gathers all F + 1 slots' rows into it (slot 0 gathers a
-  placeholder row), and the bottom MLP's output then overwrites slot 0.
-  No concatenated copy is made: at ``retrieval_cand`` (10^6 rows) the
-  input alone is 6.9 GB.
+  logit.  Served (no gradient), the interaction input is one preallocated
+  tensor: a single ``index_select`` gathers all F + 1 slots' rows into it
+  (slot 0 gathers a placeholder row), and the bottom MLP's output then
+  overwrites slot 0.  No concatenated copy is made: at ``retrieval_cand``
+  (10^6 rows) the input alone is 6.9 GB.  Where autograd records the
+  graph (training), the input is the reference's concatenation of the
+  dense vector and the gathered rows, and kernel 4 runs under
+  :class:`repro_torch.kernels.ops.DotInteraction`.
 - **SASRec** (``"self-attn-seq"``, causal) and **BERT4Rec**
   (``"bidir-seq"``): ``n_blocks`` pre-norm blocks over item and position
   embeddings, on :func:`layers.rmsnorm` and :func:`layers.attention`; the
@@ -29,8 +32,11 @@ layout (``x @ w + b``).
   scores the last position's hidden state against candidate items, in
   fp32.
 
-Only the forward values are ported: ``loss_fn`` gives the loss, not its
-gradient.  Ids must lie in range: ``index_select`` raises a device assert
+The losses are differentiable; ``serve_fn`` and ``retrieval_fn`` run
+without a graph.  A table's gradient is dense, as the reference's
+``jnp.take`` gives it (``index_select``'s backward adds into a zeroed
+table; on a card with atomics, so its last bits may vary from run to
+run).  Ids must lie in range: ``index_select`` raises a device assert
 on an id out of range, where the reference's ``jnp.take`` fills it
 (``recsys_batch`` never draws one).  The fp32 products run in full fp32;
 on a CUDA device they refuse to run while TF32 is allowed for them.
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import pytree
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -108,6 +115,11 @@ class MLP(nn.Module):
         pairs = list(zip(dims[:-1], dims[1:]))
         self.w = nn.ParameterList([mk.dense(i, o) for i, o in pairs])
         self.b = nn.ParameterList([mk.const((o,), 0.0) for _, o in pairs])
+
+    def reference_layout(self, prefix: str):
+        """The reference's ``[{"w", "b"}, ...]`` under ``prefix``."""
+        return [pytree.Leaf((prefix, i, k), (f"{prefix}.{k}.{i}",))
+                for i in range(len(self.w)) for k in ("w", "b")]
 
     def forward(self, x: torch.Tensor, final_act: bool = False):
         require_full_fp32(x, "the recsys MLPs")
@@ -177,6 +189,10 @@ class DeepFM(nn.Module):
         self.fm_b = mk.const((), 0.0)
         self.mlp = MLP((f * e,) + tuple(cfg.mlp) + (1,), mk)
 
+    def reference_layout(self):
+        return ([pytree.Leaf((k,), (k,)) for k in ("table", "fm_w", "fm_b")]
+                + self.mlp.reference_layout("mlp"))
+
 
 def init_deepfm(cfg: RecSysConfig, generator: torch.Generator, *,
                 device="cuda", dtype: torch.dtype = torch.float32) -> DeepFM:
@@ -184,7 +200,6 @@ def init_deepfm(cfg: RecSysConfig, generator: torch.Generator, *,
     return DeepFM(cfg, generator=generator, device=device, dtype=dtype)
 
 
-@torch.no_grad()
 def deepfm_logits(cfg: RecSysConfig, model: DeepFM,
                   batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """batch: sparse_ids (B, F) -> logits (B,) fp32."""
@@ -229,6 +244,11 @@ class DLRM(nn.Module):
         self.bot = MLP((cfg.n_dense,) + tuple(cfg.bot_mlp), mk)
         self.top = MLP((e + n_pairs,) + tuple(cfg.top_mlp), mk)
 
+    def reference_layout(self):
+        return ([pytree.Leaf(("table",), ("table",))]
+                + self.bot.reference_layout("bot")
+                + self.top.reference_layout("top"))
+
 
 def init_dlrm(cfg: RecSysConfig, generator: torch.Generator, *,
               device="cuda", dtype: torch.dtype = torch.float32) -> DLRM:
@@ -238,10 +258,19 @@ def init_dlrm(cfg: RecSysConfig, generator: torch.Generator, *,
 
 def interaction_input(cfg: RecSysConfig, model: DLRM,
                       batch: Mapping[str, torch.Tensor]):
-    """(dense vector (B, E), the (B, F + 1, E) interaction input), built in
-    one preallocated tensor: slot 0 the bottom MLP's output, slots 1..F the
-    embeddings."""
+    """(dense vector (B, E), the (B, F + 1, E) interaction input): slot 0
+    the bottom MLP's output, slots 1..F the embeddings.  Without a graph
+    it is built in one preallocated tensor (``index_select(out=)``, which
+    autograd refuses); with one, as the reference builds it, by a
+    concatenation."""
     ids = batch["sparse_ids"]
+    if torch.is_grad_enabled():
+        dense_vec = model.bot(batch["dense"].to(model.table.dtype),
+                              final_act=True)
+        rows = _flat_field_ids(cfg, ids)
+        emb = torch.index_select(model.table, 0, rows.reshape(-1)).reshape(
+            rows.shape + (cfg.embed_dim,))
+        return dense_vec, torch.cat([dense_vec[:, None, :], emb], dim=1)
     b, f = ids.shape
     e = cfg.embed_dim
     rows = torch.zeros((b, f + 1), dtype=torch.int64, device=ids.device)
@@ -254,7 +283,6 @@ def interaction_input(cfg: RecSysConfig, model: DLRM,
     return dense_vec, x
 
 
-@torch.no_grad()
 def dlrm_logits(cfg: RecSysConfig, model: DLRM,
                 batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """batch: dense (B, n_dense), sparse_ids (B, F) -> logits (B,) fp32."""
@@ -317,9 +345,15 @@ def init_seqrec(cfg: RecSysConfig, generator: torch.Generator, *,
 
 def _seq_encode(cfg: RecSysConfig, model: SeqRec, seq: torch.Tensor,
                 causal: bool) -> torch.Tensor:
-    """seq (B, S) item ids -> hidden (B, S, E).  The residual adds and the
-    FFN's bias and ReLU run in place on fresh tensors: the reference's
-    arithmetic, in less memory."""
+    """seq (B, S) item ids -> hidden (B, S, E).  The FFN's bias and ReLU
+    run in place on fresh tensors, and without a graph so do the residual
+    adds: the reference's arithmetic, in less memory (autograd keeps the
+    residual stream for its backward)."""
+    inplace = not torch.is_grad_enabled()
+
+    def add(x, y):
+        return x.add_(y) if inplace else x + y
+
     b, s = seq.shape
     e, h = cfg.embed_dim, cfg.n_heads
     dh = e // h
@@ -333,16 +367,16 @@ def _seq_encode(cfg: RecSysConfig, model: SeqRec, seq: torch.Tensor,
         del xn
         o = attention(q, k, v, causal=causal, q_chunk=0).reshape(b, s, e)
         del q, k, v
-        x += mm(o, blk.wo)
+        x = add(x, mm(o, blk.wo))
         del o
         xn = rmsnorm(x, blk.ln2)
         ff = mm(xn, blk.w1)
         del xn
         ff += blk.b1
         ff.relu_()
-        x += mm(ff, blk.w2)
+        x = add(x, mm(ff, blk.w2))
         del ff
-        x += blk.b2
+        x = add(x, blk.b2)
     return rmsnorm(x, model.final_ln)
 
 
@@ -350,7 +384,6 @@ def _causal(cfg: RecSysConfig) -> bool:
     return cfg.interaction == "self-attn-seq"
 
 
-@torch.no_grad()
 def seqrec_scores(cfg: RecSysConfig, model: SeqRec, hidden: torch.Tensor,
                   item_ids: torch.Tensor) -> torch.Tensor:
     """Score hidden (..., E) against item_ids (..., C) -> (..., C), fp32."""
@@ -359,7 +392,6 @@ def seqrec_scores(cfg: RecSysConfig, model: SeqRec, hidden: torch.Tensor,
                         cand.to(torch.float32))
 
 
-@torch.no_grad()
 def seqrec_loss(cfg: RecSysConfig, model: SeqRec,
                 batch: Mapping[str, torch.Tensor]):
     """Sampled BCE (SASRec-style): batch has seq, pos, neg (B, S), mask
@@ -423,7 +455,13 @@ def params_from_reference(cfg: RecSysConfig, params: Mapping,
     return model
 
 
-@torch.no_grad()
+def params_to_reference(cfg: RecSysConfig, model):
+    """The inverse of :func:`params_from_reference`: the reference's
+    ``init_deepfm``, ``init_dlrm`` or ``init_seqrec`` pytree of the
+    module's weights, as detached tensors that share their storage."""
+    return pytree.module_tree(model)
+
+
 def pointwise_loss(cfg: RecSysConfig, model,
                    batch: Mapping[str, torch.Tensor]):
     """BCE for DeepFM / DLRM: batch adds labels (B,)."""
@@ -436,7 +474,7 @@ def pointwise_loss(cfg: RecSysConfig, model,
 
 
 def loss_fn(cfg: RecSysConfig, model, batch: Mapping[str, torch.Tensor]):
-    """The training loss's value (no gradient: training is not ported)."""
+    """The training loss: (loss, {"loss": loss}), differentiable."""
     if cfg.interaction in ("fm", "dot"):
         return pointwise_loss(cfg, model, batch)
     return seqrec_loss(cfg, model, batch)

@@ -1,5 +1,6 @@
-"""Decoder-only LM for serving: GQA or MLA attention, dense or MoE FFN.  A
-copy of ``repro.models.transformer``'s forward, prefill and decode.
+"""Decoder-only LM: GQA or MLA attention, dense or MoE FFN.  A copy of
+``repro.models.transformer``'s forward, training loss, prefill and
+decode.
 
 An :class:`LM` module holds what the reference's params pytree holds:
 ``embed`` (Vp, d), ``dense_layers`` and ``moe_layers`` (one
@@ -20,17 +21,24 @@ jit donates that buffer.  A write at a position >= S is dropped, as the
 reference's out-of-range scatter drops it.  MoE layers route dropless at
 inference (capacity E / top_k).
 
-Training (``loss_fn``) and the sharding specs (``param_specs``,
-``cache_specs``) are not ported yet (ROADMAP.md §1).  Everything runs on
-``cuda`` unless the caller passes ``device="cpu"``.
+:func:`loss_fn` is the reference's chunked fp32 cross-entropy plus the
+MoE router's aux loss, differentiable; with ``cfg.remat`` each block is
+recomputed in the backward (``torch.utils.checkpoint``, where the
+reference has ``jax.checkpoint``).  :func:`prefill` and
+:func:`decode_step` serve, and build no graph.  The sharding specs
+(``param_specs``, ``cache_specs``) wait for the launch slice (ROADMAP.md
+§1).  Everything runs on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import pytree
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -142,6 +150,14 @@ class LM(nn.Module):
         """Every layer in cache order: the dense layers, then the MoE."""
         return list(self.dense_layers) + list(self.moe_layers)
 
+    def reference_layout(self) -> List[pytree.Leaf]:
+        """The reference's pytree: ``embed``, ``final_norm`` and
+        ``lm_head`` as they are, each stack's layers on a leading axis."""
+        own = [pytree.Leaf((n,), (n,))
+               for n, _ in self.named_parameters(recurse=False)]
+        return (own + pytree.stacked_layout("dense_layers", self.dense_layers)
+                + pytree.stacked_layout("moe_layers", self.moe_layers))
+
 
 def init_params(cfg: LMConfig, generator: torch.Generator, *, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> LM:
@@ -172,6 +188,14 @@ def params_from_reference(cfg: LMConfig, params: Mapping,
         for i, block in enumerate(blocks):
             assign_from_reference(block, _index_tree(stack, i))
     return model
+
+
+def params_to_reference(cfg: LMConfig, model: LM):
+    """The inverse of :func:`params_from_reference`: the reference's
+    ``init_params`` pytree of the module's weights as detached tensors,
+    each stack's layers on a leading axis (new tensors; the other leaves
+    share the parameters' storage)."""
+    return pytree.module_tree(model)
 
 
 def _index_tree(tree, i):
@@ -283,11 +307,17 @@ def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor,
     positions = torch.arange(s, device=tokens.device)[None, :]
     h = model.embed[tokens.to(torch.int64)]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     caches = []
     for blocks in (model.dense_layers, model.moe_layers):
         entries = []
         for p in blocks:
-            h, a, entry = _block(cfg, p, h, positions, inference)
+            if remat:
+                h, a, entry = torch.utils.checkpoint.checkpoint(
+                    _block, cfg, p, h, positions, inference,
+                    use_reentrant=False)
+            else:
+                h, a, entry = _block(cfg, p, h, positions, inference)
             aux = aux + a
             if emit_cache:
                 entries.append(entry)
@@ -308,6 +338,34 @@ def logits_for(cfg: LMConfig, model: LM, h: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def loss_fn(cfg: LMConfig, model: LM, batch: Dict[str, torch.Tensor], *,
+            ce_chunk: int = 512):
+    """batch: tokens (B, S), labels (B, S), mask (B, S) -> (loss, metrics).
+
+    The cross-entropy runs over sequence chunks of ``ce_chunk`` (one chunk
+    when S is not a multiple), each through fp32 logits; the loss is the
+    masked mean plus the MoE router's aux loss."""
+    h, aux, _ = forward(cfg, model, batch["tokens"])
+    s = h.shape[1]
+    labels = batch["labels"].to(torch.int64)
+    mask = batch["mask"].to(torch.float32)
+    chunk = min(ce_chunk, s)
+    n = s // chunk if s % chunk == 0 else 1
+    chunk = s // n
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = logits_for(cfg, model, h[:, sl])        # (B, chunk, Vp)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        tot = tot + torch.sum((lse - gold) * mask[:, sl])
+        cnt = cnt + torch.sum(mask[:, sl])
+    ce = tot / torch.clamp(cnt, min=1.0)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +392,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
     }
 
 
+@torch.no_grad()
 def prefill(cfg: LMConfig, model: LM, tokens: torch.Tensor,
             max_len: Optional[int] = None):
     """tokens (B, S) -> (last-token fp32 logits (B, Vp), cache).
@@ -410,6 +469,7 @@ def _decode_block(cfg: LMConfig, p: Block, h: torch.Tensor, kv: torch.Tensor,
     return h + y, entry
 
 
+@torch.no_grad()
 def decode_step(cfg: LMConfig, model: LM, cache: Dict[str, torch.Tensor],
                 token: torch.Tensor):
     """token (B,) -> (fp32 logits (B, Vp), updated cache).

@@ -510,3 +510,154 @@ def test_chip_smoke_side_only_runs_the_device_and_side_phases(
     assert calls == ["device", "phase_side"]
     out = capsys.readouterr().out
     assert '"ok"' not in out and "stub card, 700 W" in out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def train_small(smoke, monkeypatch):
+    """Phase train at reduced sizes: dlrm-rm2 with 1,000 rows a field and
+    batches of 256 (3 steps, resumed to 6), llama3-8b at the reference's
+    reduced widths (2 layers of d 128, sequences of 32), and three archs
+    on the "card" (the CPU here) against the CPU."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.launch import train as TL
+
+    def small(arch):
+        cfg = get_config(arch)
+        return replace(cfg, vocab_per_field=1000) if arch == "dlrm-rm2" \
+            else cfg
+
+    monkeypatch.setattr(TL, "get_config", small)
+    monkeypatch.setattr(smoke, "LM_TRAIN_OVERRIDES", dict(
+        LM_SMALL, n_kv_heads=2))
+    for name, value in [("DLRM_TRAIN_BATCH", 256), ("DLRM_TRAIN_STEPS", 3),
+                        ("DLRM_TIMED_STEPS", 3), ("DLRM_GATE_ROWS", 8),
+                        ("DOT_GRAD_SAMPLES", 64), ("LM_TRAIN_BATCH", 2),
+                        ("LM_TRAIN_SEQ", 32), ("LM_TRAIN_STEPS", 2),
+                        ("TRAIN_ARCHS", ["dlrm-rm2", "gin-tu",
+                                         "deepseek-v2-lite-16b"])]:
+        monkeypatch.setattr(smoke, name, value)
+    return smoke
+
+
+def test_chip_smoke_train_phase_rehearses_on_the_cpu(train_small, capsys):
+    """Every gate of phase train passes, and kernel 4 is counted once a
+    forward pass: runs 1-3 (3, then 3 resumed, then 6), the gradient
+    pair's kernel half, the warm-up, 3 timed steps, the AdamW gate, and
+    the reduced dlrm-rm2 on both sides (3 + 3: the wrappers see a card
+    here).  The profiled step runs only on a card."""
+    out = train_small.phase_train(torch.device("cpu"))
+    assert out["launches"] == 12 + 1 + 1 + 3 + 1 + 6
+    assert out["backward"]["max_rel_err"] < 1e-5        # fp32 against f64
+    text = capsys.readouterr().out
+    assert "[train] arch=dlrm-rm2 runs=3,resume-to-6,6 batch=256 " in text
+    assert "resume_equal=True " in text and "dot_launches=12 " in text
+    assert "save_s=" in text and "restore_s=" in text
+    assert "[train] kernel=dot_interaction_backward route=plain-pytorch " \
+           "samples_checked=64 " in text
+    assert "[train] arch=dlrm-rm2 cell=train batch=256 " in text
+    assert "step_ms_p50=" in text and "bound_ms=" in text
+    assert "profile=dlrm-rm2 step device_busy_ms=not-measured" in text
+    assert "[train] adamw_vs_f64_rows=16 " in text
+    assert "[train] arch=llama3-8b layers=2 d_model=128 " in text
+    assert "remat=True remat_gate=True " in text
+    assert '[train] card_vs_cpu={"dlrm-rm2": ' in text
+    assert "[train] dot_interaction_launches=24 " in text
+
+
+def _sparse_row_adamw(real_adamw):
+    """AdamW that leaves the table rows the batch did not touch alone (a
+    sparse-row update): not the reference's dense one."""
+    from repro_torch import pytree
+    from repro_torch.train import optimizer as TO
+
+    def make(cfg):
+        real = real_adamw(cfg)
+
+        def update(grads, state, params):
+            keep = []
+            for p, g, m, v in zip(*(pytree.leaves(t) for t in (
+                    params, grads, state["m"], state["v"]))):
+                if p.dim() == 2 and p.shape[0] >= 1000:
+                    idle = (g == 0).all(dim=1)
+                    keep.append((p, m, v, idle, p[idle].clone(),
+                                 m[idle].clone(), v[idle].clone()))
+            out = real.update(grads, state, params)
+            for p, m, v, idle, p0, m0, v0 in keep:
+                p[idle], m[idle], v[idle] = p0, m0, v0
+            return out
+
+        return TO.Optimizer(real.init, update)
+
+    return make
+
+
+def _torch_optim_adamw(real_adamw):
+    """``torch.optim.AdamW``'s arithmetic: a constant lr, no clip."""
+    import math
+    from repro_torch import pytree
+    from repro_torch.train import optimizer as TO
+
+    def make(cfg):
+        real = real_adamw(cfg)
+
+        @torch.no_grad()
+        def update(grads, state, params):
+            c = state["count"] + 1
+            lr, n = cfg.learning_rate, int(c)
+            for p, g, m, v in zip(*(pytree.leaves(t) for t in (
+                    params, grads, state["m"], state["v"]))):
+                p.mul_(1 - lr * cfg.weight_decay)
+                m.mul_(0.9).add_(g, alpha=0.1)
+                v.mul_(0.95).addcmul_(g, g, value=0.05)
+                denom = (v.sqrt() / math.sqrt(1 - 0.95 ** n)).add_(1e-8)
+                p.addcdiv_(m, denom, value=-lr / (1 - 0.9 ** n))
+            return params, {"m": state["m"], "v": state["v"], "count": c}, \
+                {"grad_norm": torch.zeros(()), "lr": torch.tensor(lr)}
+
+        return TO.Optimizer(real.init, update)
+
+    return make
+
+
+@pytest.mark.parametrize("wrong", [_sparse_row_adamw, _torch_optim_adamw],
+                         ids=["sparse_rows", "torch_optim"])
+def test_chip_smoke_train_gate_refuses_another_adamw(train_small,
+                                                     monkeypatch, wrong):
+    from repro_torch.launch import train as TL
+    from repro_torch.train import optimizer as TO
+    monkeypatch.setattr(TO, "adamw", wrong(TO.adamw))
+    with pytest.raises(AssertionError, match="AdamW's p != the reference"):
+        train_small._dlrm_train_timed(torch.device("cpu"),
+                                      TL.get_config("dlrm-rm2"))
+
+
+def test_chip_smoke_train_gate_refuses_a_resume_that_restarts(train_small,
+                                                              monkeypatch):
+    """A train() that ignores its checkpoint starts run 2 over at step 0:
+    it takes twice the forward passes, and the launch count refuses it."""
+    from repro_torch.launch import train as TL
+    real = TL.train
+    monkeypatch.setattr(TL, "train", lambda arch, **kw: real(
+        arch, **dict(kw, resume=False)))
+    with pytest.raises(AssertionError, match="kernel 4 launched"):
+        train_small._dlrm_train_runs(torch.device("cpu"),
+                                     TL.get_config("dlrm-rm2"), 1 << 20)
+
+
+def test_chip_smoke_train_only_runs_the_device_and_train_phases(
+        smoke, monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "phase_device",
+                        lambda: calls.append("device") or "stub card, 700 W")
+    for name in ("phase_train", "phase_side", "phase_parity"):
+        monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
+    assert smoke.main(["--train-only"]) == 0
+    assert calls == ["device", "phase_train"]
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "stub card, 700 W" in out

@@ -53,9 +53,9 @@ SIDE_MODELS = {
 #: the LM path's departures (ROADMAP.md §3): an ``nn.Module`` for the
 #: params pytree, a ``torch.Generator`` for the key
 LM_DEPARTURES = {"params": "model", "key": "generator"}
-#: functions of ``repro.models.transformer`` that wait for the training
-#: and launch slices (ROADMAP.md §1)
-LM_WAITING = {"loss_fn", "param_specs", "cache_specs"}
+#: functions of ``repro.models.transformer`` that wait for the launch
+#: slice (ROADMAP.md §1)
+LM_WAITING = {"param_specs", "cache_specs"}
 #: the private functions of the LM path the port keeps under their names
 LM_PRIVATE = {"layers": {"_attend"}, "moe": {"_position_in_expert"},
               "transformer": {"_decode_attn"}}
@@ -197,6 +197,72 @@ def test_side_model_surfaces_match(name):
         if gone:
             wrong[n] = gone
     assert wrong == {}
+
+
+#: the training slice's departures (ROADMAP.md §3): an ``nn.Module`` for
+#: the params pytree and a ``torch.Generator`` for the key, as above, and
+#: what waits for the launch slice's mesh: the optimizers' ``state_specs``
+#: and ``restore(shardings=)``
+TRAIN_DEPARTURES = dict(LM_DEPARTURES)
+TRAIN_WAITING = {"Optimizer": {"state_specs"}, "restore": {"shardings"}}
+#: the reference's private helpers whose work the port does elsewhere: the
+#: flatten by ``jax.tree_util`` (``repro_torch.pytree``)
+TRAIN_PRIVATE_GONE = {"_flatten"}
+TRAIN_MODULES = ["train", "train.optimizer", "train.step", "train.checkpoint",
+                 "train.compression", "train.elastic", "train.straggler",
+                 "launch.train"]
+
+
+def _own_names(module):
+    """Functions and classes defined in ``module``, and for a package the
+    names it exports."""
+    own = {n for n, v in vars(module).items()
+           if (inspect.isfunction(v) or inspect.isclass(v))
+           and (v.__module__ == module.__name__ or hasattr(module,
+                                                           "__path__"))}
+    if hasattr(module, "__path__"):
+        own |= {n for n, v in vars(module).items() if inspect.ismodule(v)
+                and v.__name__.startswith(module.__name__ + ".")}
+    return own
+
+
+@pytest.mark.parametrize("name", TRAIN_MODULES)
+def test_training_surfaces_match(name):
+    """``repro.<name>`` against ``repro_torch.<name>``: every function,
+    class and (for the package) export is in the port, every keyword
+    parameter of each (a NamedTuple's fields, a class's ``__init__`` and
+    public methods) too, up to :data:`TRAIN_DEPARTURES` and
+    :data:`TRAIN_WAITING`."""
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    names = _own_names(ref) - TRAIN_PRIVATE_GONE
+    assert names - _own_names(port) == set()
+    wrong = {}
+    for n in sorted(names):
+        r, p = getattr(ref, n), getattr(port, n)
+        if inspect.ismodule(r):
+            continue
+        pairs = [(n, r, p)]
+        if inspect.isclass(r):
+            pairs += [(f"{n}.{m}", getattr(r, m), getattr(p, m, None))
+                      for m, v in vars(r).items()
+                      if not m.startswith("_") and callable(v)]
+        for label, rr, pp in pairs:
+            if pp is None:
+                wrong[label] = "absent"
+                continue
+            pr, pq = _params(rr), _params(pp)
+            if pr is None or pq is None:
+                continue
+            gone = [a for a in pr if a not in pq
+                    and TRAIN_DEPARTURES.get(a) not in pq
+                    and a not in TRAIN_WAITING.get(label, ())]
+            if gone:
+                wrong[label] = gone
+    assert wrong == {}
+    for label, waiting in TRAIN_WAITING.items():
+        if hasattr(port, label):
+            assert not set(_params(getattr(port, label))) & waiting
 
 
 def test_serve_surface_matches():

@@ -150,8 +150,8 @@ def test_params_from_reference_carry_every_weight(reference):
         for k, v in want.items():
             got = getattr(lp, k)
             assert got.dtype == (torch.float32)
-            np.testing.assert_array_equal(got.numpy(), np.asarray(v))
-    np.testing.assert_array_equal(model.out.numpy(), np.asarray(params["out"]))
+            np.testing.assert_array_equal(got.detach().numpy(), np.asarray(v))
+    np.testing.assert_array_equal(model.out.detach().numpy(), np.asarray(params["out"]))
     assert model.layers[0].w1.shape == (D_FEAT, 64)
     assert model.out.shape == (64, N_CLASSES)
     assert model.layers[2].eps.shape == () and float(model.layers[2].eps) == 0.5
@@ -170,10 +170,10 @@ def test_gin_forward_and_node_logits_match_reference(reference, graph,
     got = G.gin_forward(cfg, model, tb["x"], tb["edge_src"], tb["edge_dst"],
                         tb.get("edge_mask"))
     assert got.shape == (300, 64) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_allclose(
-        G.node_logits(cfg, model, got).numpy(),
+        G.node_logits(cfg, model, got).detach().numpy(),
         np.asarray(JG.node_logits(jcfg, params, want)), rtol=RTOL, atol=ATOL)
 
 
@@ -221,7 +221,7 @@ def test_graph_logits_and_graph_loss_match_reference(reference):
     h = G.gin_forward(cfg, model, tb["x"], tb["edge_src"], tb["edge_dst"])
     jh = JG.gin_forward(jcfg, params, jb["x"], jb["edge_src"], jb["edge_dst"])
     np.testing.assert_allclose(
-        G.graph_logits(cfg, model, h, tb["graph_id"], 6).numpy(),
+        G.graph_logits(cfg, model, h, tb["graph_id"], 6).detach().numpy(),
         np.asarray(JG.graph_logits(jcfg, params, jh, jb["graph_id"], 6)),
         rtol=RTOL, atol=ATOL)
     want, wm = JG.graph_loss(jcfg, params, jb)

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels against their plain versions, on
 the card, and the paths that run them (BFS methods, materialization, DLRM
-serving).  Every test here needs a CUDA device and skips without one; the
+serving, kernel 4 under autograd, training against the CPU).  Every test here needs a CUDA device and skips without one; the
 file imports no jax, so it runs on a GPU host that has none:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -355,8 +355,7 @@ def _normal(rng, shape, device, dtype):
 _DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,f,e,dtype,offset", [
+_DOT_SHAPES = [
     (128, 27, 64, torch.float32, 0), (37, 27, 64, torch.float32, 0),
     (64, 8, 16, torch.float32, 0), (256, 40, 10, torch.float32, 0),
     (1001, 64, 256, torch.float32, 0),   # fewer samples a CTA
@@ -371,7 +370,11 @@ _DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     (1584, 27, 64, torch.float32, 0), (1585, 27, 64, torch.float32, 0),
     # x one element into its buffer: the plain load path
     (512, 27, 64, torch.float32, 1), (1585, 27, 64, torch.bfloat16, 1),
-])
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,e,dtype,offset", _DOT_SHAPES)
 def test_dot_interaction_kernel_matches_plain(cuda, b, f, e, dtype, offset):
     rng = np.random.default_rng(b + f + e)
     buf = _normal(rng, (b * f * e + offset,), cuda, dtype)
@@ -385,6 +388,48 @@ def test_dot_interaction_kernel_matches_plain(cuda, b, f, e, dtype, offset):
     want = ref.dot_interaction_ref(x)
     tol = _DOT_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,e,dtype,offset", _DOT_SHAPES)
+def test_dot_interaction_autograd_matches_plain_gradient(cuda, b, f, e, dtype,
+                                                         offset):
+    """Kernel 4 under autograd (``ops.DotInteraction``): one launch a
+    forward pass, and x's gradient == autograd's through the plain
+    forward, within the forward's tolerance of the gradient's scale."""
+    rng = np.random.default_rng(b + f + e + 1)
+    buf = _normal(rng, (b * f * e + offset,), cuda, dtype)
+    x = buf[offset:].view(b, f, e).requires_grad_(True)
+    w = _normal(rng, (b, f * (f - 1) // 2), cuda, torch.float32)
+    before = ops.LAUNCHES["dot_interaction"]
+    got, = torch.autograd.grad(torch.sum(ops.dot_interaction(x).float() * w),
+                               x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dot_interaction"] == before + 1
+    xp = x.detach().clone().requires_grad_(True)
+    want, = torch.autograd.grad(
+        torch.sum(ref.dot_interaction_ref(xp).float() * w), xp)
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = _DOT_TOL[dtype]
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "deepfm", "sasrec", "bert4rec",
+                                  "gin-tu", "llama3-8b", "granite-3-8b",
+                                  "qwen1.5-32b", "deepseek-v2-lite-16b",
+                                  "kimi-k2-1t-a32b"])
+def test_train_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+    """``train()`` at the reference's reduced_config on the card and on the
+    CPU from one step-0 checkpoint: losses and step-3 weights within
+    chip_smoke's TRAIN_CPU_TOL."""
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    monkeypatch.setattr(chip_smoke, "TRAIN_ARCHS", [arch])
+    chip_smoke._train_card_against_cpu(cuda)
 
 
 def _decode_inputs(rng, b, hq, hkv, d, s, device, dtype):

@@ -50,7 +50,7 @@ def test_rmsnorm(dtype):
 
 def test_rope_freqs():
     for dim, theta in ((64, 10000.0), (128, 500000.0), (8, 1e6)):
-        close(L.rope_freqs(dim, theta), JL.rope_freqs(dim, theta),
+        close(L.rope_freqs(dim, theta, "cpu"), JL.rope_freqs(dim, theta),
               dict(rtol=1e-6, atol=0))
 
 
@@ -231,3 +231,14 @@ def test_decode_attn_counts_no_launch():
     before = dict(ops.LAUNCHES)
     ops.decode_attn(q, kc, vc, torch.tensor([1, 3]), kn, vn)
     assert ops.LAUNCHES == before
+
+
+def test_rope_freqs_runs_on_the_card_unless_asked():
+    """Like every entry point of the port: no card and no ``device="cpu"``
+    raises, where it once made a CPU tensor on a GPU host."""
+    if torch.cuda.is_available():
+        assert L.rope_freqs(64, 1e4).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            L.rope_freqs(64, 1e4)
+    assert L.rope_freqs(64, 1e4, device="cpu").device.type == "cpu"

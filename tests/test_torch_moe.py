@@ -36,7 +36,7 @@ def test_position_in_expert_is_exact(n, e, seed):
     flat = np.random.default_rng(seed).integers(0, e, n).astype(np.int32)
     want = np.asarray(JM._position_in_expert(jnp.asarray(flat), e))
     got = M._position_in_expert(torch.from_numpy(flat).long(), e)
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.detach().numpy(), want)
     for x in range(e):                 # each expert's entries count 0, 1, ..
         np.testing.assert_array_equal(np.sort(want[flat == x]),
                                       np.arange((flat == x).sum()))
@@ -54,7 +54,7 @@ def test_moe_ffn_matches_reference(cf, n_shared):
                             capacity_factor=cf, router_aux_weight=0.01)
     got, aux = M.moe_ffn(model, torch.from_numpy(x), top_k=k,
                          capacity_factor=cf, router_aux_weight=0.01)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(float(aux), float(jaux), **TOL)
     if cf < 1:                         # some tokens were dropped
         full, _ = M.moe_ffn(model, torch.from_numpy(x), top_k=k,
@@ -76,14 +76,14 @@ def test_router_ties_go_to_the_lower_expert():
     x = np.random.default_rng(7).standard_normal((t, d)).astype(np.float32)
     probs = torch.softmax(torch.from_numpy(x) @ model.router, -1)
     _, idx = M._top_k(probs, k)
-    _, jidx = jax.lax.top_k(jnp.asarray(probs.numpy()), k)
+    _, jidx = jax.lax.top_k(jnp.asarray(probs.detach().numpy()), k)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     for cf in (1.0, e / k):
         want, _ = JM.moe_ffn(jparams, jnp.asarray(x), top_k=k,
                              capacity_factor=cf, router_aux_weight=0.01)
         got, _ = M.moe_ffn(model, torch.from_numpy(x), top_k=k,
                            capacity_factor=cf, router_aux_weight=0.01)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("t", [1, 8, 9])
@@ -99,12 +99,12 @@ def test_inference_capacity_keeps_every_token(t):
                          capacity_factor=cf, router_aux_weight=0.0)
     got, _ = M.moe_ffn(model, torch.from_numpy(x), top_k=k,
                        capacity_factor=cf, router_aux_weight=0.0)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     # every token alone gives its own row: nothing was dropped
     for i in range(t):
         one, _ = M.moe_ffn(model, torch.from_numpy(x[i:i + 1]), top_k=k,
                            capacity_factor=cf, router_aux_weight=0.0)
-        np.testing.assert_allclose(one[0].numpy(), got[i].numpy(),
+        np.testing.assert_allclose(one[0].detach().numpy(), got[i].detach().numpy(),
                                    rtol=1e-5, atol=1e-5)
 
 

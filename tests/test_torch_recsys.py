@@ -64,7 +64,7 @@ def test_config_is_the_references():
 def test_params_from_reference_carry_every_weight(reference):
     jcfg, params, cfg, model = reference
     assert model.table.shape == (26 * 1000, 64)
-    np.testing.assert_array_equal(model.table.numpy(),
+    np.testing.assert_array_equal(model.table.detach().numpy(),
                                   np.asarray(params["table"]))
     dims = [tuple(w.shape) for w in model.bot.w] + [
         tuple(w.shape) for w in model.top.w]
@@ -73,8 +73,10 @@ def test_params_from_reference_carry_every_weight(reference):
                     (256, 1)]
     for mlp, layers in ((model.bot, params["bot"]), (model.top, params["top"])):
         for w, b, layer in zip(mlp.w, mlp.b, layers):
-            np.testing.assert_array_equal(w.numpy(), np.asarray(layer["w"]))
-            np.testing.assert_array_equal(b.numpy(), np.asarray(layer["b"]))
+            np.testing.assert_array_equal(w.detach().numpy(),
+                                          np.asarray(layer["w"]))
+            np.testing.assert_array_equal(b.detach().numpy(),
+                                          np.asarray(layer["b"]))
 
 
 @pytest.mark.parametrize("step", [0, 7])

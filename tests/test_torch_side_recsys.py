@@ -136,7 +136,7 @@ def test_params_from_reference_carry_every_weight(reference):
     for name, want in leaves.items():
         got = state[_port_name(arch, name)]
         assert tuple(got.shape) == want.shape, name
-        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        np.testing.assert_array_equal(got.detach().numpy(), want, err_msg=name)
 
 
 def test_seqrec_item_table_has_the_pad_and_mask_rows():
@@ -201,7 +201,7 @@ def test_deepfm_logits_match_reference():
     want = np.asarray(JR.deepfm_logits(jcfg, params, jb))
     got = R.deepfm_logits(cfg, model, tb)
     assert got.dtype == torch.float32 and got.shape == (128,)
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def test_serve_fn_matches_reference(reference):
@@ -211,7 +211,7 @@ def test_serve_fn_matches_reference(reference):
     got = R.serve_fn(cfg, model, tb)
     assert got.dtype == torch.float32
     assert got.shape == ((48, N_CAND) if arch in SEQ else (48,))
-    np.testing.assert_allclose(got.numpy(), want, **_tol(arch))
+    np.testing.assert_allclose(got.detach().numpy(), want, **_tol(arch))
 
 
 def test_retrieval_fn_matches_reference(reference):
@@ -233,7 +233,7 @@ def test_retrieval_fn_matches_reference(reference):
                                        b.items()}))
     got = R.retrieval_fn(cfg, model, R.as_batch(b, "cpu"))
     assert got.shape == shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, **_tol(arch))
+    np.testing.assert_allclose(got.detach().numpy(), want, **_tol(arch))
 
 
 def test_loss_fn_matches_reference(reference):
@@ -280,14 +280,14 @@ def test_seqrec_scores_and_encoder_match_reference(arch):
     causal = arch == "sasrec"
     want_h = JR._seq_encode(jcfg, params, jb["seq"], causal=causal)
     got_h = R._seq_encode(cfg, model, tb["seq"], causal=causal)
-    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=RTOL,
+    np.testing.assert_allclose(got_h.detach().numpy(), np.asarray(want_h), rtol=RTOL,
                                atol=ATOL)
     ids = np.random.default_rng(5).integers(0, cfg.n_items + 2,
                                             (8, cfg.seq_len, 7))
     want = JR.seqrec_scores(jcfg, params, want_h, jnp.asarray(ids))
     got = R.seqrec_scores(cfg, model, got_h, torch.from_numpy(ids))
     assert got.shape == (8, cfg.seq_len, 7)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
     # causal: the first position sees only itself, so a later item moves
     # nothing before it; bidirectional: every position sees it
@@ -321,7 +321,7 @@ def test_embedding_bag_matches_reference(table, combiner, weighted):
                           combiner=combiner,
                           weights=None if w is None else torch.from_numpy(w))
     assert got.shape == (4, 3, 6)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
 
 

@@ -67,7 +67,7 @@ def tokens(cfg, shape, seed=0):
 
 
 def close(got, want, tol=TOL):
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want,
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want,
                                                                np.float32),
                                **tol)
 
@@ -155,11 +155,11 @@ def test_decode_matches_prefill(arch, n):
     h, _, _ = T.forward(cfg, model, seq, inference=True)
     full = T.logits_for(cfg, model, h)                       # (1, 2n, Vp)
     logits, cache = T.prefill(cfg, model, seq[:, :n], max_len=2 * n)
-    np.testing.assert_allclose(logits.numpy(), full[:, n - 1].numpy(),
+    np.testing.assert_allclose(logits.numpy(), full[:, n - 1].detach().numpy(),
                                rtol=2e-4, atol=2e-4)
     for i in range(n, 2 * n):
         logits, cache = T.decode_step(cfg, model, cache, seq[:, i])
-        np.testing.assert_allclose(logits.numpy(), full[:, i].numpy(),
+        np.testing.assert_allclose(logits.numpy(), full[:, i].detach().numpy(),
                                    rtol=2e-3, atol=2e-3)
 
 
