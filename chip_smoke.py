@@ -18,8 +18,9 @@ open-loop trace.
 Then it serves dlrm-rm2 at full size
 through the dot-interaction kernel, runs the flash-decode kernel at
 llama3-8b's decode cells, serves llama3-8b and deepseek-v2-lite-16b
-at full size through the LM decode server, and serves DeepFM, SASRec,
-BERT4Rec and GIN at their published widths.  Phases:
+at full size through the LM decode server, serves DeepFM, SASRec,
+BERT4Rec and GIN at their published widths, trains, and plans the
+reference's dry-run cells and runs those that fit the card.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
   2. parity       the three CSL kernels == their plain versions, exact, at
@@ -172,6 +173,21 @@ BERT4Rec and GIN at their published widths.  Phases:
                   the reference's reduced_config through ``train()`` on
                   the card and on the CPU from one step-0 checkpoint:
                   losses and step-3 weights within TRAIN_CPU_TOL
+ 17. launch       the launch layer's dry-run (``repro_torch.launch``):
+                  all 44 of the reference's cells planned on its 16x16
+                  and 2x16x16 production meshes of ``meta`` placeholders
+                  (one process a cell), each counted once on a
+                  one-device ``meta`` mesh: every LM, recsys and GNN cell
+                  "ok", a co-occurrence cell "ok" or "planned" with the
+                  op that stopped it; then each cell whose planned peak
+                  fits the card run on it at full size from seeded
+                  inputs: the counted FLOPs == the meta count, the model
+                  FLOPs and bytes == the plan's, every output finite; the
+                  CSL query and ingest cells again under "fused" (kernel
+                  2) and "pallas" (kernel 1), answers == "gemm"'s; each
+                  run's median step of 3, peak against its planned peak,
+                  and the model's time over the step's, beside the
+                  card's name and power limit
 
 Every phase raises on failure.  It prints one line per phase; the last
 two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
@@ -181,9 +197,9 @@ device, or outside a checkout, it exits non-zero before printing a result.
 ``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
 compare kernel 4 between two trees on one card, and prints no result line;
 ``--lm-only`` runs phases 1 and 14 alone and ``--side-only`` phases 1
-and 15 alone, ``--train-only`` phases 1 and 16 alone; none of them
-prints a result line.  Every phase but 16 serves, and runs without an
-autograd graph.
+and 15 alone, ``--train-only`` phases 1 and 16 alone, ``--launch-only``
+phases 1 and 17 alone; none of them prints a result line.  Every phase
+but 16 and 17 serves, and runs without an autograd graph.
 """
 from __future__ import annotations
 
@@ -200,8 +216,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # the bound of a kernel is the larger of its bytes over the memory rate and
-# its operations over their unit's rate
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+# its operations over their unit's rate; the H100 SXM data sheet's rates of
+# HBM3 and of dense bf16 tensor cores come from the port's launch layer
+# (the checkout's src/, which main() checks for before anything runs)
+if (ROOT / "src" / "repro_torch").is_dir():
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+    from repro_torch.launch.mesh import (  # noqa: E402
+        PEAK_FLOPS_BF16 as BF16_OPS_PER_S)
 POPC_PER_CLOCK_PER_SM = 16     # CUDA programming guide, compute capability 9.0
 INT8_OPS_PER_S = 1.979e15      # H100 SXM data sheet, dense int8 tensor cores
 
@@ -235,7 +257,6 @@ SERVE_LOAD = 0.5               # steady arrival rate, of the capacity
 SERVE_STEADY, SERVE_BURST, SERVE_HOSTILE, SERVE_INGESTS = 2048, 256, 6, 4
 SERVE_CHECKED = 32             # requests of each hot plan held to an engine
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 
 # dlrm-rm2 at full size, RECSYS_SHAPES' serving cells
 DLRM_VOCAB = 1_000_000         # rows per sparse field (the published size)
@@ -4262,6 +4283,183 @@ def phase_train(dev):
     return {"launches": launches, **timed}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch layer
+# ---------------------------------------------------------------------------
+
+# the dry-run's placeholder sweep in the reference's scan mode, then the
+# cells that fit run on the card; the co-occurrence query and ingest cells
+# run again under each of these methods (kernels 2 and 1), beside "gemm"
+LAUNCH_MODE = "scan"
+LAUNCH_METHODS = ("fused", "pallas")
+LAUNCH_CELLS = None            # None: every cell of all_cells()
+LAUNCH_SUBPROCESS = True       # each cell planned in its own process
+# the cells that must end "ok" on the placeholder meshes: all but cooccur
+LAUNCH_MUST_PLAN = ("lm", "recsys", "gnn")
+
+
+def _launch_family(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import CoocConfig, GNNConfig, LMConfig
+    cfg = get_config(arch)
+    return ("lm" if isinstance(cfg, LMConfig) else
+            "gnn" if isinstance(cfg, GNNConfig) else
+            "cooc" if isinstance(cfg, CoocConfig) else "recsys")
+
+
+def _launch_read(out_dir, arch, shape, mesh):
+    from repro_torch.launch import dryrun as DR
+    with open(DR.record_path(out_dir, arch, shape, mesh, LAUNCH_MODE)) as f:
+        return json.load(f)
+
+
+def _say_plan(recs):
+    """One line for a cell's records on the placeholder meshes."""
+    from repro_torch.launch import dryrun as DR
+    first = recs[0]
+    planned = DR.planned_peak(first)
+    fields = dict(cell=f"{first['arch']}/{first['shape']}",
+                  status=first["status"],
+                  program_peak_gb=f"{first['counts']['peak_bytes'] / 1e9:.3f}",
+                  planned_peak_gb="none" if planned is None else
+                  f"{planned / 1e9:.3f}")
+    for rec in recs:
+        m = rec["mesh"]
+        fields[f"args_gb_per_device_{m}"] = \
+            f"{rec['memory']['argument_size_in_bytes'] / 1e9:.3f}"
+        if rec["status"] == "ok":
+            rl = rec["roofline"]
+            fields[f"flops_per_dev_{m}"] = f"{rl['flops_per_dev']:.4e}"
+            fields[f"kernel_ops_per_dev_{m}"] = \
+                f"{rl['kernel_ops_per_dev']:.4e}"
+            fields[f"bytes_per_dev_{m}"] = f"{rl['hbm_bytes_per_dev']:.4e}"
+    if first["status"] == "ok":
+        rl = first["roofline"]
+        fields.update(coll_bytes_per_dev=rl["coll_bytes_per_dev"],
+                      bottleneck=rl["bottleneck"],
+                      useful_ratio=f"{rl['useful_ratio']:.4f}")
+    else:
+        fields["reason"] = repr(first["reason"])
+    say("launch", **fields)
+
+
+def _say_host(rec, **extra):
+    fields = dict(cell=f"{rec['arch']}/{rec['shape']}", mesh=rec["mesh"],
+                  status=rec["status"])
+    if rec["status"] != "ok":
+        fields["reason"] = repr(rec["reason"])
+        say("launch", **fields)
+        return
+    rl, mem = rec["roofline"], rec["memory"]
+    t_model = max(rl["model_flops"] / (rl["n_chips"] * BF16_OPS_PER_S),
+                  rl["model_bytes"] / (rl["n_chips"] * HBM_BYTES_PER_S))
+    fields.update(
+        t_step_ms=f"{rec['t_step_s'] * 1e3:.3f}",
+        peak_gb=f"{mem.get('peak_per_device_bytes', 0) / 1e9:.3f}",
+        planned_peak_gb=f"{rec['planned_peak_bytes'] / 1e9:.3f}",
+        args_gb=f"{mem['argument_size_in_bytes'] / 1e9:.3f}",
+        flops=rec["counts"]["flops"], meta_flops=rec["meta_flops"],
+        kernel_ops=rec["counts"]["kernel_ops"],
+        t_kernel_ops_ms=f"{rl['t_kernel_ops_s'] * 1e3:.4f}",
+        bytes=rec["counts"]["bytes"],
+        bottleneck=rl["bottleneck"],
+        roofline_fraction=f"{rl['roofline_fraction']:.4f}",
+        t_model_ms=f"{t_model * 1e3:.4f}",
+        t_model_over_step=f"{t_model / rec['t_step_s']:.4g}",
+        kernels=json.dumps(rec["counts"]["kernels"]), **extra)
+    if "postings_density" in rec:
+        fields["postings_density"] = f"{rec['postings_density']:.4e}"
+    say("launch", **fields)
+
+
+def phase_launch(dev):
+    """The launch layer (``repro_torch.launch.dryrun``): every cell planned
+    on the 16x16 and 2x16x16 placeholder meshes (``meta``), counted once
+    on a one-device ``meta`` mesh; then each cell whose planned peak fits
+    run on the card at full size from seeded inputs, the co-occurrence
+    index from the CSL corpus model (FLOPs and kernel counts == the meta
+    count, the peak within the fit rule's reserve of the planned one,
+    model FLOPs and bytes == the plan's, outputs finite), and the
+    co-occurrence query and ingest cells under LAUNCH_METHODS == under
+    "gemm".  Returns the phase's kernel launches."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.cells import all_cells
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cells = list(LAUNCH_CELLS or all_cells())
+    card = smi("name,power.limit")
+    say("launch", card=repr(card), cells=len(cells), mode=LAUNCH_MODE,
+        jobs=DR.JOBS if LAUNCH_SUBPROCESS else 1)
+    out_dir = tempfile.mkdtemp(prefix="dryrun-torch-")
+    try:
+        rc = DR.run_all([False, True], out_dir, LAUNCH_MODE,
+                        subprocess_mode=LAUNCH_SUBPROCESS, verbose=False,
+                        cells=cells)
+        t_plan = time.perf_counter() - t0
+        for arch, shape in cells:
+            recs = [_launch_read(out_dir, arch, shape, mesh)
+                    for mesh in ("16x16", "2x16x16")]
+            _say_plan(recs)
+            for rec in recs:
+                if rec["status"] != "ok" and \
+                        _launch_family(arch) in LAUNCH_MUST_PLAN:
+                    raise AssertionError(f"{arch} x {shape} @ {rec['mesh']} "
+                                         f"ended {rec['status']}")
+        if rc:
+            raise AssertionError("the placeholder sweep failed")
+        say("launch", placeholder_sweep_s=f"{t_plan:.1f}")
+
+        ops.reset_launches()
+        n_run = 0
+        for arch, shape in cells:
+            meta = _launch_read(out_dir, arch, shape, "meta-1x1")
+            kind = meta["kind"]
+            again = kind in ("cooc_query", "cooc_ingest")
+            rec, out = DR.host_cell(arch, shape, meta, device=dev,
+                                    mode=LAUNCH_MODE, out_dir=out_dir,
+                                    verbose=False, keep_output=again)
+            _say_host(rec)
+            n_run += rec["status"] == "ok"
+            if again and rec["status"] == "ok":
+                for method in LAUNCH_METHODS:
+                    os.environ["REPRO_COOC_METHOD"] = method
+                    try:
+                        meta_m, = DR.plan_records(arch, shape, (), None,
+                                                  LAUNCH_MODE, verbose=False)
+                        rec_m, out_m = DR.host_cell(
+                            arch, shape, meta_m, device=dev,
+                            mode=LAUNCH_MODE, out_dir=out_dir,
+                            verbose=False, keep_output=True)
+                    finally:
+                        del os.environ["REPRO_COOC_METHOD"]
+                    if rec_m["status"] != "ok" or not same_network(out,
+                                                                   out_m):
+                        raise AssertionError(f"{arch} x {shape}: {method}'s "
+                                             "answer != gemm's")
+                    _say_host(rec_m, equal_to_gemm=True)
+                    del out_m
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = dict(ops.LAUNCHES)
+    for name in ("postings_counts", "level_step", "dot_interaction"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase launch never launched {name}")
+    say("launch", cells_run=n_run, launches=json.dumps(launches),
+        card=repr(card), seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 def main(argv=()) -> int:
     import argparse
     import torch
@@ -4277,6 +4475,9 @@ def main(argv=()) -> int:
                          "nothing else; prints no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="build the kernels and run the train phase, "
+                         "nothing else; prints no result line")
+    ap.add_argument("--launch-only", action="store_true",
+                    help="build the kernels and run the launch phase, "
                          "nothing else; prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4298,8 +4499,8 @@ def main(argv=()) -> int:
         print(card, flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
-    if args.train_only:
-        phase_train(dev)
+    if args.train_only or args.launch_only:
+        (phase_train if args.train_only else phase_launch)(dev)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(card, flush=True)
         return 0
@@ -4331,6 +4532,9 @@ def main(argv=()) -> int:
     dot.update(train_launches=train["launches"],
                        backward_ms=train["backward"]["ms"],
                        backward_bound_ms=train["backward"]["bound_ms"])
+    launch = phase_launch(dev)
+    for k in kernels:
+        k["launch_launches"] = launch[k["name"]]
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,6 +2,8 @@
 
 Entry points run on ``cuda`` unless the caller asks for the CPU: with no
 card and no ``device="cpu"`` they raise, never carry on on the CPU.
+``"meta"`` (PyTorch's placeholder device, which allocates nothing) is
+taken only when it is named: the launch layer plans on it.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
         raise RuntimeError(
             "no CUDA device is available; the port runs on the GPU unless "
             "the caller passes device='cpu'")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         "(or 'meta' to plan)")
     return dev
 
 

@@ -11,11 +11,19 @@ its main path went through the kernels.  It is process-wide on purpose: it
 counts the launches of the process's one set of kernels, from any thread
 (the server's lanes step from executor threads), so every update holds
 :data:`_COUNTS_LOCK`.
+
+A ``meta`` tensor (the launch layer's placeholder) reaches neither a
+launch nor a plain version: the wrapper returns an output of the right
+shape and dtype.  Where a wrapper launches its kernel, or stands in for
+it on ``meta``, it charges the launch's operations and bytes
+(:func:`kernel_cost`) to the active cost sinks, the launch layer's
+counters (:class:`repro_torch.launch.roofline.Counter`): the kernels are
+called through ``ctypes``, so PyTorch's dispatch never sees them.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,6 +38,8 @@ LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0,
 #: mma.sync fallback for operands TMA cannot describe)
 COOCCUR_PATHS: Dict[str, int] = {"tma": 0, "bytes": 0}
 _COUNTS_LOCK = threading.Lock()
+#: the counters a launch is charged to (see :func:`add_cost_sink`)
+_COST_SINKS: List = []
 
 
 def reset_launches() -> None:
@@ -47,6 +57,76 @@ def _count(name: str, path: Optional[str] = None) -> None:
             COOCCUR_PATHS[path] += 1
 
 
+def add_cost_sink(sink) -> None:
+    """Charge every launch from now on to ``sink.charge(name, n_ops,
+    n_bytes)`` as well, until :func:`remove_cost_sink`."""
+    with _COUNTS_LOCK:
+        _COST_SINKS.append(sink)
+
+
+def remove_cost_sink(sink) -> None:
+    with _COUNTS_LOCK:
+        _COST_SINKS.remove(sink)
+
+
+def _nbytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_cost(name: str, *args: torch.Tensor, **kw) -> Tuple[int, int]:
+    """(operations, bytes) of one launch of kernel ``name`` on its
+    operands (tensors or ``meta`` placeholders), each input read once and
+    each output written once: the counts of ``PERF.md``'s kernel table,
+    taken dense.  Kernels 1 and 2 count every mask word against every
+    column (one AND+popcount each) and every packed word row, where the
+    table's bound counts only the nonzero words the data has: a count on
+    ``meta`` has no data.
+
+    postings_counts(masks, packed) / level_step(masks, packed, terms,
+    valid, visited, v=, k=) / cooccur_counts(x_l, x_r) /
+    dot_interaction(x) / flash_decode(q, k, v)."""
+    if name == "postings_counts":
+        masks, packed = args
+        (r, w), v = masks.shape, packed.shape[1]
+        return r * w * v, _nbytes(masks, packed) + r * v * 4
+    if name == "level_step":
+        masks, packed, terms, valid, visited = args
+        (r, w), v, k = masks.shape, kw["v"], kw["k"]
+        return (r * w * v, _nbytes(masks, terms, valid, visited)
+                + w * v * 4 + 2 * r * k * 4)
+    if name == "cooccur_counts":
+        x_l, x_r = args
+        d, vl, vr = x_l.shape[0], x_l.shape[1], x_r.shape[1]
+        return 2 * d * vl * vr, _nbytes(x_l, x_r) + vl * vr * 4
+    if name == "dot_interaction":
+        x, = args
+        b, f, e = x.shape
+        p = f * (f - 1) // 2
+        return 2 * b * p * e, (b * f * e + b * p) * x.element_size()
+    if name == "flash_decode":
+        q, k, v = args
+        b, hq, d = q.shape
+        s = k.shape[1]
+        return 4 * b * hq * s * d, 2 * _nbytes(q, k) + b * 4
+    raise KeyError(name)
+
+
+def _charge(name: str, *args: torch.Tensor, **kw) -> None:
+    """Charge one launch (or its ``meta`` stand-in) to the cost sinks."""
+    if not _COST_SINKS:            # the serving path: nothing counts
+        return
+    with _COUNTS_LOCK:
+        sinks = list(_COST_SINKS)
+    if sinks:
+        n_ops, n_bytes = kernel_cost(name, *args, **kw)
+        for sink in sinks:
+            sink.charge(name, n_ops, n_bytes)
+
+
+def _is_meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return True
@@ -61,10 +141,14 @@ def postings_counts(masks: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
 
     masks (B, W), packed (W, V): int32 tensors holding uint32 bit patterns
     -> (B, V) int32.  Mirrors ``repro.kernels.ops.postings_counts``."""
+    if _is_meta(masks):
+        _charge("postings_counts", masks, packed)
+        return masks.new_empty((masks.shape[0], packed.shape[1]))
     if _on_cuda(masks):
         from repro_torch.kernels.postings import postings_counts_cuda
         out = postings_counts_cuda(masks, packed)
         _count("postings_counts")
+        _charge("postings_counts", masks, packed)
         return out
     return ref.postings_counts_ref(masks, packed)
 
@@ -97,11 +181,16 @@ def level_step(masks: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"{masks.shape[0]} frontier rows do not split into "
                          f"{vis.shape[0]} queries")
     k_eff = min(k, v)
-    if _on_cuda(masks):
+    if _is_meta(masks):
+        _charge("level_step", masks, packed, terms, valid, vis, v=v, k=k_eff)
+        w = masks.new_empty((masks.shape[0], k_eff))
+        i = masks.new_empty((masks.shape[0], k_eff))
+    elif _on_cuda(masks):
         from repro_torch.kernels.level_step import level_step_cuda
         w, i = level_step_cuda(masks, packed, terms, valid, vis,
                                v=v, k=k_eff, dedup=dedup)
         _count("level_step")
+        _charge("level_step", masks, packed, terms, valid, vis, v=v, k=k_eff)
     else:
         w, i = ref.level_step_ref(masks, packed, terms, valid, vis,
                                   v=v, k=k_eff, dedup=dedup)
@@ -137,11 +226,16 @@ def cooccur_counts(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
     _doc_axis_contiguous(x_r, "x_r")
     if x_l.shape[0] != x_r.shape[0]:
         raise ValueError(f"x_l has {x_l.shape[0]} docs, x_r {x_r.shape[0]}")
+    if _is_meta(x_l):
+        _charge("cooccur_counts", x_l, x_r)
+        return torch.empty((x_l.shape[1], x_r.shape[1]), dtype=torch.int32,
+                           device=x_l.device)
     if _on_cuda(x_l):
         from repro_torch.kernels.cooccur import cooccur_counts_cuda
         out, path = cooccur_counts_cuda(x_l.t(), x_r.t())
         if path is not None:
             _count("cooccur_counts", path)
+            _charge("cooccur_counts", x_l, x_r)
         return out
     return ref.cooccur_counts_ref(x_l, x_r)
 
@@ -200,10 +294,15 @@ def cooccur_gemm(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
 
 
 def _dot_interaction_forward(x: torch.Tensor) -> torch.Tensor:
+    if _is_meta(x):
+        _charge("dot_interaction", x)
+        f = x.shape[1]
+        return x.new_empty((x.shape[0], f * (f - 1) // 2))
     if _on_cuda(x):
         from repro_torch.kernels.dot_interaction import dot_interaction_cuda
         out = dot_interaction_cuda(x)
         _count("dot_interaction")
+        _charge("dot_interaction", x)
         return out
     return ref.dot_interaction_ref(x)
 
@@ -258,11 +357,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
     if s < 1 or hq % hkv:
         raise ValueError(f"S={s} must be >= 1 and Hq={hq} a multiple of "
                          f"Hkv={hkv}")
+    if _is_meta(q):
+        _charge("flash_decode", q, k, v)
+        return torch.empty_like(q)
     if _on_cuda(q):
         from repro_torch.kernels.flash_decode import flash_decode_cuda
         ln = ref.decode_lengths(length, b, s, q.device)
         out = flash_decode_cuda(q, k, v, ln, chunk)
         _count("flash_decode")
+        _charge("flash_decode", q, k, v)
         return out
     return ref.flash_decode_ref(q, k, v, length, chunk=chunk)
 

@@ -1,7 +1,8 @@
 """End-to-end trainer: a copy of ``repro.launch.train``.
 
 Runs real steps on one device, the card unless the caller passes
-``device="cpu"``, with the reference's fault-tolerance stack:
+``device="cpu"``, inside the logical-axis rules of the host mesh (as the
+reference's does), with the reference's fault-tolerance stack:
 checkpoint/restore with resume (the reference's on-disk format, so
 either package resumes the other's run), the straggler watchdog and the
 deterministic restartable data pipeline.
@@ -27,6 +28,8 @@ from repro_torch.configs import get_config, list_archs, replace
 from repro_torch.configs.base import CoocConfig, GNNConfig, LMConfig, RecSysConfig
 from repro_torch.data import gnn_synthetic_graph, lm_batch, recsys_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.sharding import axis_rules
 from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
@@ -114,51 +117,54 @@ def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 64,
         cfg = reduced_config(cfg)
     dev = resolve_device(device)
 
+    mesh = make_host_mesh(dev)
     loss_fn = make_loss(cfg)
     opt = make_optimizer(cfg)
     step_fn = make_train_step(cfg, loss_fn, opt)
     batch_fn = make_batch_fn(cfg, batch, seq, dev)
 
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                        device=dev)
-    opt_state = opt.init(pytree.module_tree(model))
-    start = 0
-    if ckpt_dir and resume and checkpoint.latest_step(ckpt_dir) is not None:
-        (params, opt_state), start = checkpoint.restore(
-            ckpt_dir, (pytree.module_tree(model), opt_state))
-        pytree.load_module_tree(model, params)
-        del params
-        print(f"resumed from step {start}")
+    with axis_rules(mesh):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = init_params(cfg, gen, device=dev)
+        opt_state = opt.init(pytree.module_tree(model))
+        start = 0
+        if ckpt_dir and resume and \
+                checkpoint.latest_step(ckpt_dir) is not None:
+            (params, opt_state), start = checkpoint.restore(
+                ckpt_dir, (pytree.module_tree(model), opt_state))
+            pytree.load_module_tree(model, params)
+            del params
+            print(f"resumed from step {start}")
 
-    dog = StragglerWatchdog()
-    metrics = {}
-    pending = None
-    for s in range(start, steps):
-        dog.start_step(s)
-        b = batch_fn(s)
-        model, opt_state, metrics = step_fn(model, opt_state, b)
-        loss = float(metrics["loss"])          # waits for the step
-        ev = dog.end_step()
-        if ev is not None:
-            print(f"  straggler @ step {ev.step}: {ev.step_time:.3f}s "
-                  f"({ev.ratio:.1f}x median)")
-        if s % log_every == 0 or s == steps - 1:
-            print(f"step {s}: loss {loss:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}")
-        if ckpt_dir and (s + 1) % ckpt_every == 0:
-            if pending is not None:
-                pending.join()
-            pending = checkpoint.save(
-                ckpt_dir, s + 1, (pytree.module_tree(model), opt_state),
-                blocking=not async_ckpt)
-    if pending is not None:
-        pending.join()
-    if ckpt_dir:
-        checkpoint.save(ckpt_dir, steps, (pytree.module_tree(model),
-                                          opt_state))
-    return {"loss": float(metrics["loss"]), "steps": steps,
-            "straggler_stats": dog.stats()}
+        dog = StragglerWatchdog()
+        metrics = {}
+        pending = None
+        for s in range(start, steps):
+            dog.start_step(s)
+            b = batch_fn(s)
+            model, opt_state, metrics = step_fn(model, opt_state, b)
+            loss = float(metrics["loss"])          # waits for the step
+            ev = dog.end_step()
+            if ev is not None:
+                print(f"  straggler @ step {ev.step}: {ev.step_time:.3f}s "
+                      f"({ev.ratio:.1f}x median)")
+            if s % log_every == 0 or s == steps - 1:
+                print(f"step {s}: loss {loss:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.3f}")
+            if ckpt_dir and (s + 1) % ckpt_every == 0:
+                if pending is not None:
+                    pending.join()
+                pending = checkpoint.save(
+                    ckpt_dir, s + 1, (pytree.module_tree(model), opt_state),
+                    blocking=not async_ckpt)
+        if pending is not None:
+            pending.join()
+        if ckpt_dir:
+            checkpoint.save(ckpt_dir, steps, (pytree.module_tree(model),
+                                              opt_state))
+        return {"loss": float(metrics["loss"]), "steps": steps,
+                "straggler_stats": dog.stats()}
 
 
 def main() -> int:

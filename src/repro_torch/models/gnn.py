@@ -98,6 +98,15 @@ def params_to_reference(cfg: GNNConfig, model: GIN):
     return pytree.module_tree(model)
 
 
+def param_specs(cfg: GNNConfig, params) -> Dict:
+    """GIN params are tiny -> replicated everywhere: the reference's tree
+    of logical axes, over ``params`` in the reference's layout
+    (:func:`params_to_reference`; a module is taken to it)."""
+    if isinstance(params, nn.Module):
+        params = params_to_reference(cfg, params)
+    return pytree.tree_map(lambda x: tuple([None] * x.dim()), params)
+
+
 def _layer_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """LayerNorm without a bias, over the population variance (``jnp.var``;
     ``torch.var`` needs ``correction=0`` for it)."""

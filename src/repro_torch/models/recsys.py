@@ -462,6 +462,28 @@ def params_to_reference(cfg: RecSysConfig, model):
     return pytree.module_tree(model)
 
 
+def param_specs(cfg: RecSysConfig, params) -> Dict:
+    """Tables row-sharded over "rows" -> model axis; MLPs replicated.  The
+    reference's tree of logical axes, over ``params`` in the reference's
+    layout (:func:`params_to_reference`; a module is taken to it)."""
+    if isinstance(params, nn.Module):
+        params = params_to_reference(cfg, params)
+
+    def spec(path_key, x):
+        if path_key in ("table", "fm_w", "item_emb"):
+            return ("rows",) + tuple([None] * (x.dim() - 1))
+        return tuple([None] * x.dim())
+
+    def rec(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: rec(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [rec(v, name) for v in tree]
+        return spec(name, tree)
+
+    return rec(params)
+
+
 def pointwise_loss(cfg: RecSysConfig, model,
                    batch: Mapping[str, torch.Tensor]):
     """BCE for DeepFM / DLRM: batch adds labels (B,)."""

@@ -25,10 +25,11 @@ inference (capacity E / top_k).
 MoE router's aux loss, differentiable; with ``cfg.remat`` each block is
 recomputed in the backward (``torch.utils.checkpoint``, where the
 reference has ``jax.checkpoint``).  :func:`prefill` and
-:func:`decode_step` serve, and build no graph.  The sharding specs
-(``param_specs``, ``cache_specs``) wait for the launch slice (ROADMAP.md
-§1).  Everything runs on ``cuda`` unless the caller passes
-``device="cpu"``.
+:func:`decode_step` serve, and build no graph.  :func:`param_specs` and
+:func:`cache_specs` are the reference's logical-axis trees, in the
+reference's layout (the stacked layers of :func:`params_to_reference`),
+for :mod:`repro_torch.launch.sharding`.  Everything runs on ``cuda``
+unless the caller passes ``device="cpu"`` (or ``"meta"``, to plan).
 """
 from __future__ import annotations
 
@@ -196,6 +197,60 @@ def params_to_reference(cfg: LMConfig, model: LM):
     each stack's layers on a leading axis (new tensors; the other leaves
     share the parameters' storage)."""
     return pytree.module_tree(model)
+
+
+def param_specs(cfg: LMConfig) -> Dict:
+    """Tree of logical-axis tuples in :func:`params_to_reference`'s layout
+    (each stack's layers on a leading axis): the reference's.
+
+    "fsdp" resolves to the data axis only when cfg.fsdp (else it is
+    dropped); indivisible dims degrade to replication.
+    """
+    f = "fsdp" if cfg.fsdp else None
+
+    def attn_specs() -> Dict:
+        if cfg.mla:
+            return {
+                "wq": (f, "heads"), "wdkv": (f, None), "wkr": (f, None),
+                "wuk": (None, "heads"), "wuv": (None, "heads"),
+                "wo": ("heads", f),
+            }
+        s = {"wq": (f, "heads"), "wk": (f, "kv_heads"), "wv": (f, "kv_heads"),
+             "wo": ("heads", f)}
+        if cfg.qkv_bias:
+            s.update({"bq": ("heads",), "bk": ("kv_heads",),
+                      "bv": ("kv_heads",)})
+        return s
+
+    def block_specs(is_moe: bool) -> Dict:
+        p = {"ln1": (None,), "ln2": (None,), "attn": attn_specs()}
+        if is_moe:
+            p["moe"] = {
+                "router": (None, None),
+                "w1": ("experts", f, None), "w3": ("experts", f, None),
+                "w2": ("experts", None, f),
+            }
+            if cfg.n_shared_experts:
+                p["moe"].update({"shared_w1": (f, "ff"),
+                                 "shared_w3": (f, "ff"),
+                                 "shared_w2": ("ff", f)})
+        else:
+            p["ffn"] = {"w1": (f, "ff"), "w3": (f, "ff"), "w2": ("ff", f)}
+        return p
+
+    def stacked(d: Dict) -> Dict:
+        return {k: stacked(v) if isinstance(v, dict) else (None,) + v
+                for k, v in d.items()}
+
+    n_dense, n_moe = _layer_counts(cfg)
+    specs = {"embed": ("vocab", f), "final_norm": (None,)}
+    if n_dense:
+        specs["dense_layers"] = stacked(block_specs(False))
+    if n_moe:
+        specs["moe_layers"] = stacked(block_specs(True))
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (f, "vocab")
+    return specs
 
 
 def _index_tree(tree, i):
@@ -378,6 +433,18 @@ def kv_cache_dims(cfg: LMConfig) -> Tuple[int, int]:
     if cfg.mla:
         return 1, cfg.kv_lora_rank + cfg.qk_rope_dim
     return cfg.n_kv_heads, 2 * cfg.head_dim
+
+
+def cache_specs(cfg: LMConfig, long_context: bool) -> Dict:
+    """Logical axes for the cache tree: the reference's.
+
+    Sequence dim shards over "model" ("kv_seq" adds "data" for the
+    batch=1 long-context cell); kv_heads picks up whatever remains (it
+    degrades to replication when the model axis is already consumed or
+    indivisible — e.g. 8 GQA heads on a 16-way axis)."""
+    seq_ax = "kv_seq" if long_context else "seq"
+    return {"kv": (None, "batch", seq_ax, "kv_heads", None),
+            "length": ("batch",)}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,

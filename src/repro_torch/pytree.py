@@ -48,16 +48,28 @@ def leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+def is_logical(v) -> bool:
+    """A leaf of a logical-axes tree (param, cache and optimizer-state
+    specs): a tuple of names, tuples and Nones."""
+    return isinstance(v, tuple) and not isinstance(v, torch.Size) and all(
+        isinstance(a, (str, tuple, type(None))) for a in v)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """``fn`` over the leaves of ``tree`` and of the same-shaped ``rest``,
-    in a tree of ``tree``'s structure."""
+    in a tree of ``tree``'s structure; a node of ``tree`` for which
+    ``is_leaf`` holds is a leaf (``jax.tree.map``'s ``is_leaf``)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if tree is None:
         return None
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf)
                 for k in tree}
     if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest))
+        out = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                for i, v in enumerate(tree)]
         return tuple(out) if isinstance(tree, tuple) else out
     return fn(tree, *rest)

@@ -25,8 +25,13 @@ A dtype numpy cannot store natively (bf16) is saved as its raw bytes,
   ``save`` returns cannot change what is written.
 
 ``restore`` rebuilds the tree on ``device`` (default: each template
-leaf's); restoring onto a mesh (the reference's ``shardings=``) waits for
-the launch slice.
+leaf's), or, with ``shardings=`` (a tree of
+:class:`repro_torch.launch.sharding.NamedSharding` matching the
+template), shard by shard: each grid position's slice is read from the
+memory-mapped file and placed on its device (the reference's
+reshard-on-restore).  A leaf whose sharding puts it whole on one device
+is a plain tensor; any other a
+:class:`repro_torch.launch.sharding.ShardedTensor`.
 """
 from __future__ import annotations
 
@@ -44,6 +49,10 @@ from repro_torch.core.atomic_io import commit_dir
 
 _NATIVE = {"float64", "float32", "float16", "int64", "int32", "int16", "int8",
            "uint64", "uint32", "uint16", "uint8", "bool"}
+
+
+#: numpy's unsigned integer of each byte width: a raw leaf's bits
+_UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -115,10 +124,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            device=None, shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``template`` (a pytree of tensors):
     each leaf in the manifest's dtype, on ``device`` or, without one, on
-    its template leaf's device."""
+    its template leaf's device.
+
+    shardings: optional tree of NamedSharding matching ``template``: the
+    leaves are rebuilt shard by shard (reshard-on-restore), and ``device``
+    must not be given."""
+    if shardings is not None and device is not None:
+        raise ValueError("restore takes shardings= or device=, not both")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -128,13 +143,30 @@ def restore(ckpt_dir: str, template: Any, *, step: Optional[int] = None,
         manifest = json.load(f)
     by_key = {l["key"]: l for l in manifest["leaves"]}
 
+    shard_flat = None
+    if shardings is not None:
+        from repro_torch.launch.sharding import make_from_callback
+        shard_flat = [s for _, s in pytree.flatten_with_path(shardings)]
+
     leaves = []
-    for path, tmpl in pytree.flatten_with_path(template):
+    for i, (path, tmpl) in enumerate(pytree.flatten_with_path(template)):
         meta = by_key[pytree.keystr(path)]
-        arr = np.array(np.load(os.path.join(d, meta["file"]), mmap_mode="r"))
-        t = torch.from_numpy(arr)
-        if meta.get("raw"):
-            t = t.view(getattr(torch, meta["dtype"])).reshape(
-                tuple(meta["shape"]))
-        leaves.append(t.to(device if device is not None else tmpl.device))
+        arr = np.load(os.path.join(d, meta["file"]), mmap_mode="r")
+        shape = tuple(meta["shape"])
+
+        def read(idx, arr=arr, meta=meta, shape=shape):
+            """The host tensor of the leaf's slice ``idx`` (all of it for
+            an index of full slices), read from the mapped file."""
+            if meta.get("raw"):
+                dt = getattr(torch, meta["dtype"])
+                bits = arr.view(_UINT[dt.itemsize]).reshape(shape)
+                return torch.from_numpy(np.array(bits[idx])).view(dt)
+            return torch.from_numpy(np.array(arr[idx]))
+
+        if shard_flat is not None:
+            leaves.append(make_from_callback(shape, shard_flat[i], read))
+        else:
+            full = read(tuple(slice(None) for _ in shape))
+            leaves.append(full.to(device if device is not None
+                                  else tmpl.device))
     return pytree.unflatten(template, leaves), step

@@ -13,20 +13,21 @@ The recovery contract:
   3. the state restores from the latest checkpoint;
   4. the data pipeline's (seed, step) contract resumes the stream.
 
-``build_mesh`` lays a plan out as a grid of torch devices driven by one
-process, as :class:`repro_torch.core.distributed.CoocMesh` is: there is
-no ``torch.distributed`` process group, and a device may repeat (four
+``build_mesh`` lays a plan out as a
+:class:`repro_torch.launch.mesh.DeviceMesh` (re-exported here), a grid
+of torch devices driven by one process, as
+:class:`repro_torch.core.distributed.CoocMesh` is: there is no
+``torch.distributed`` process group, and a device may repeat (four
 shards of one card).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
-from repro_torch.device import canonical_device, resolve_device
+from repro_torch.launch.mesh import DeviceMesh, make_mesh  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -57,42 +58,10 @@ def plan_mesh(n_devices: int, *, model_parallel: int = 16,
     return MeshPlan((data, mp), ("data", "model"))
 
 
-class DeviceMesh:
-    """A grid of torch devices with named axes, driven by one process."""
-
-    def __init__(self, devices, axis_names: Sequence[str]):
-        grid = np.empty(np.shape(devices), dtype=object)
-        src = np.asarray(devices, dtype=object)
-        for pos in np.ndindex(grid.shape):
-            grid[pos] = canonical_device(src[pos])
-        if grid.ndim != len(tuple(axis_names)):
-            raise ValueError(f"a {grid.ndim}-D grid needs {grid.ndim} axis "
-                             f"names, got {tuple(axis_names)}")
-        self.devices = grid
-        self.axis_names = tuple(axis_names)
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.devices.shape))
-
-    @property
-    def size(self) -> int:
-        return int(self.devices.size)
-
-
 def build_mesh(plan: MeshPlan, devices: Optional[Sequence] = None
                ) -> DeviceMesh:
     """The plan's grid over ``devices`` (default: every card)."""
-    if devices is None:
-        resolve_device("cuda")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devs = list(devices)
-    need = plan.n_devices
-    assert len(devs) >= need, (len(devs), need)
-    arr = np.empty(need, dtype=object)
-    arr[:] = devs[:need]
-    return DeviceMesh(arr.reshape(plan.shape), plan.axes)
+    return make_mesh(plan.shape, plan.axes, devices)
 
 
 def simulate_failure(n_devices: int, n_failed: int, *, model_parallel: int = 16,

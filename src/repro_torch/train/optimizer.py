@@ -16,13 +16,14 @@ of layers, is the reference's.  The state has the reference's structure
 and writes the new parameters and moments into the tensors it was given,
 in place, and returns them: the reference's jit donates both, so their
 old values are dead there too, and at dlrm-rm2's size (a 6.7 GB table)
-the copies would not fit beside the state.  The sharding specs of the
-state (the reference's ``state_specs``) wait for the launch slice.
+the copies would not fit beside the state.  ``state_specs`` maps a
+model's ``param_specs`` tree to the state's logical axes, as the
+reference's does (:mod:`repro_torch.launch.sharding`).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,7 @@ F32 = torch.float32
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any, Dict]]
+    state_specs: Optional[Callable[[Any], Any]] = None  # param specs -> state's
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -136,7 +138,10 @@ def adamw(cfg: BaseConfig, b1: float = 0.9, b2: float = 0.95,
         return params, {"m": state["m"], "v": state["v"], "count": c}, \
             {"grad_norm": gn, "lr": lr}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        return {"m": pspecs, "v": pspecs, "count": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +215,23 @@ def adafactor(cfg: BaseConfig, b1: float = 0.9, decay: float = 0.99,
                         "vc": state["vc"], "count": c}, \
             {"grad_norm": gn, "lr": lr}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        def vrow_spec(s):
+            return s[:-1] if len(s) >= 2 else s
+
+        def vcol_spec(s):
+            return s[:-2] + s[-1:] if len(s) >= 2 else ()
+
+        return {
+            "m": pspecs,
+            "vr": pytree.tree_map(vrow_spec, pspecs,
+                                  is_leaf=pytree.is_logical),
+            "vc": pytree.tree_map(vcol_spec, pspecs,
+                                  is_leaf=pytree.is_logical),
+            "count": (),
+        }
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +262,10 @@ def sgdm(cfg: BaseConfig, momentum: float = 0.9) -> Optimizer:
         return params, {"m": state["m"], "count": c}, \
             {"grad_norm": gn, "lr": lr}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs):
+        return {"m": pspecs, "count": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def make_optimizer(cfg: BaseConfig) -> Optimizer:

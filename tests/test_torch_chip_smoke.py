@@ -661,3 +661,110 @@ def test_chip_smoke_train_only_runs_the_device_and_train_phases(
     assert calls == ["device", "phase_train"]
     out = capsys.readouterr().out
     assert '"ok"' not in out and "stub card, 700 W" in out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the launch layer
+# ---------------------------------------------------------------------------
+
+LAUNCH_SMALL_CELLS = [("llama3-8b", "decode_32k"), ("dlrm-rm2", "serve_p99"),
+                      ("dlrm-rm2", "train_batch"), ("gin-tu", "molecule"),
+                      ("cooccur-csl", "build_full"),
+                      ("cooccur-csl", "query_bfs_d3"),
+                      ("cooccur-csl", "stream_ingest")]
+
+
+def _uncounted(fn):
+    """A stand-in launcher whose plain ops the launch layer's counter does
+    not see, as it sees no hand-written kernel."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    def run(*args, **kwargs):
+        with _disable_current_modes():
+            return fn(*args, **kwargs)
+
+    return run
+
+
+@pytest.fixture
+def launch_small(smoke, monkeypatch):
+    """Phase launch on seven cells at reduced sizes (llama3-8b at the
+    reference's reduced widths with batch 2 and 64 positions, dlrm-rm2 at
+    1,000 rows a field, the CSL index at 256 terms and 1,500 docs, GIN's
+    molecule cell as published), planned in this process; the stand-in
+    launchers hidden from the counter."""
+    import repro_torch.configs as C
+    from repro_torch.configs import base, replace
+    from repro_torch.kernels import dot_interaction, level_step, postings, ref
+
+    def small(mod, **kw):
+        m = __import__(C._ARCH_MODULES[mod], fromlist=["CONFIG"])
+        monkeypatch.setattr(m, "CONFIG", replace(m.CONFIG, **kw))
+
+    shapes = tuple(s if s.name != "decode_32k" else base.ShapeSpec(
+        s.name, s.kind, dict(seq_len=64, global_batch=2))
+        for s in C.get_config("llama3-8b").shapes)
+    small("llama3-8b", **dict(LM_SMALL, n_kv_heads=2), shapes=shapes)
+    small("dlrm-rm2", vocab_per_field=1000)
+    small("cooccur-csl", vocab_size=256, n_docs=1500)
+    monkeypatch.setattr(postings, "postings_counts_cuda",
+                        _uncounted(ref.postings_counts_ref))
+    monkeypatch.setattr(level_step, "level_step_cuda",
+                        _uncounted(ref.level_step_ref))
+    monkeypatch.setattr(dot_interaction, "dot_interaction_cuda",
+                        _uncounted(ref.dot_interaction_ref))
+    monkeypatch.setattr(smoke, "LAUNCH_CELLS", LAUNCH_SMALL_CELLS)
+    monkeypatch.setattr(smoke, "LAUNCH_SUBPROCESS", False)
+    return smoke
+
+
+def test_chip_smoke_launch_phase_rehearses_on_the_cpu(launch_small, capsys):
+    """Every cell plans on both placeholder meshes (the ingest cell stops
+    on meta at its data-dependent dedup), every cell runs on the "card"
+    (the CPU) with its FLOPs equal to the meta count, and the CSL query and
+    ingest cells answer alike under "fused" and "pallas"."""
+    launches = launch_small.phase_launch(torch.device("cpu"))
+    assert launches["level_step"] > 0 and launches["postings_counts"] > 0
+    # two cells (serve, train's forward), a counted step and 3 timed each
+    assert launches["dot_interaction"] == 2 * 4
+    text = capsys.readouterr().out
+    assert text.count("[launch] cell=") == 7 + 7 + 2 * 2
+    assert "cell=cooccur-csl/stream_ingest status=planned " \
+           "program_peak_gb=" in text
+    assert "args_gb_per_device_16x16=" in text
+    assert "flops_per_dev_2x16x16=" in text
+    assert "needs the data's values" in text
+    assert "cell=dlrm-rm2/train_batch mesh=host-1x1 status=ok " in text
+    assert "mesh=host-1x1-fused status=ok" in text
+    assert "mesh=host-1x1-pallas status=ok" in text
+    assert text.count("equal_to_gemm=True") == 4
+    assert "[launch] cells_run=7 " in text
+
+
+def test_chip_smoke_launch_gate_refuses_unequal_counts(launch_small,
+                                                       monkeypatch):
+    """A kernel that counts itself on the card but not on meta breaks the
+    FLOP gate."""
+    from repro_torch.kernels import ops
+    real = ops.kernel_cost
+    monkeypatch.setattr(ops, "kernel_cost", lambda name, *a, **k: (
+        (real(name, *a, **k)[0] + (a[0].device.type != "meta"),
+         real(name, *a, **k)[1])))
+    monkeypatch.setattr(launch_small, "LAUNCH_CELLS",
+                        [("dlrm-rm2", "serve_p99")])
+    with pytest.raises(AssertionError, match="FLOPs on cpu"):
+        launch_small.phase_launch(torch.device("cpu"))
+
+
+def test_chip_smoke_launch_only_runs_the_device_and_launch_phases(
+        smoke, monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "phase_device",
+                        lambda: calls.append("device") or "stub card, 700 W")
+    for name in ("phase_launch", "phase_train", "phase_parity"):
+        monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
+    assert smoke.main(["--launch-only"]) == 0
+    assert calls == ["device", "phase_launch"]
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "stub card, 700 W" in out

@@ -53,16 +53,16 @@ SIDE_MODELS = {
 #: the LM path's departures (ROADMAP.md §3): an ``nn.Module`` for the
 #: params pytree, a ``torch.Generator`` for the key
 LM_DEPARTURES = {"params": "model", "key": "generator"}
-#: functions of ``repro.models.transformer`` that wait for the launch
-#: slice (ROADMAP.md §1)
-LM_WAITING = {"param_specs", "cache_specs"}
+#: the sharding specs of ``repro.models.transformer``, ported with the
+#: launch layer
+LM_SPECS = {"param_specs", "cache_specs"}
 #: the private functions of the LM path the port keeps under their names
 LM_PRIVATE = {"layers": {"_attend"}, "moe": {"_position_in_expert"},
               "transformer": {"_decode_attn"}}
-#: functions of ``repro.models.recsys`` and ``repro.models.gnn`` that wait
-#: for the launch slice (ROADMAP.md §1), and the private ones the port
-#: keeps under their names
-SIDE_WAITING = {"param_specs"}
+#: the sharding specs of ``repro.models.recsys`` and ``repro.models.gnn``,
+#: ported with the launch layer, and the private functions the port keeps
+#: under their names
+SIDE_SPECS = {"param_specs"}
 SIDE_PRIVATE = {"recsys": {"_flat_field_ids", "_seq_encode"},
                 "gnn": {"_layer_norm"}}
 #: the reference's Pallas and XLA backends and its module imports: the
@@ -154,13 +154,14 @@ def _own_functions(module):
 
 @pytest.mark.parametrize("name", ["layers", "moe", "transformer"])
 def test_lm_model_surfaces_match(name):
-    """Every public function of ``repro.models.<name>`` (but for
-    :data:`LM_WAITING`), and the private ones the port keeps, exists in
-    the port with every keyword parameter, up to :data:`LM_DEPARTURES`."""
+    """Every public function of ``repro.models.<name>`` (the sharding
+    specs :data:`LM_SPECS` included), and the private ones the port keeps,
+    exists in the port with every keyword parameter, up to
+    :data:`LM_DEPARTURES`."""
     ref = importlib.import_module(f"repro.models.{name}")
     port = importlib.import_module(f"repro_torch.models.{name}")
     names = {n for n in _own_functions(ref) if not n.startswith("_")}
-    names = (names - LM_WAITING) | LM_PRIVATE[name]
+    names |= LM_PRIVATE[name]
     assert names - _own_functions(port) == set()
     wrong = {}
     for n in sorted(names):
@@ -171,24 +172,23 @@ def test_lm_model_surfaces_match(name):
             wrong[n] = gone
     assert wrong == {}
     if name == "transformer":
-        assert LM_WAITING <= _own_functions(ref)
-        assert not LM_WAITING & set(dir(port))
+        assert LM_SPECS <= _own_functions(ref) & _own_functions(port)
 
 
 @pytest.mark.parametrize("name", ["recsys", "gnn"])
 def test_side_model_surfaces_match(name):
-    """Every public function of ``repro.models.<name>`` but
-    :data:`SIDE_WAITING`, and the private ones the port keeps, exists in
-    the port with every keyword parameter, up to :data:`LM_DEPARTURES`
-    (an ``nn.Module`` for the params pytree, a ``torch.Generator`` for the
-    key)."""
+    """Every public function of ``repro.models.<name>`` (the sharding
+    specs :data:`SIDE_SPECS` included), and the private ones the port
+    keeps, exists in the port with every keyword parameter, up to
+    :data:`LM_DEPARTURES` (an ``nn.Module`` for the params pytree, a
+    ``torch.Generator`` for the key)."""
     ref = importlib.import_module(f"repro.models.{name}")
     port = importlib.import_module(f"repro_torch.models.{name}")
     names = {n for n in _own_functions(ref) if not n.startswith("_")}
-    assert SIDE_WAITING <= names
-    names = (names - SIDE_WAITING) | SIDE_PRIVATE[name]
+    assert SIDE_SPECS <= names
+    names |= SIDE_PRIVATE[name]
     assert names - _own_functions(port) == set()
-    assert not SIDE_WAITING & set(dir(port))
+    assert SIDE_SPECS <= _own_functions(port)
     wrong = {}
     for n in sorted(names):
         pp = _params(getattr(port, n))
@@ -200,11 +200,11 @@ def test_side_model_surfaces_match(name):
 
 
 #: the training slice's departures (ROADMAP.md §3): an ``nn.Module`` for
-#: the params pytree and a ``torch.Generator`` for the key, as above, and
-#: what waits for the launch slice's mesh: the optimizers' ``state_specs``
-#: and ``restore(shardings=)``
+#: the params pytree and a ``torch.Generator`` for the key, as above; the
+#: optimizers' ``state_specs`` and ``restore(shardings=)`` came with the
+#: launch layer, so every parameter is checked
 TRAIN_DEPARTURES = dict(LM_DEPARTURES)
-TRAIN_WAITING = {"Optimizer": {"state_specs"}, "restore": {"shardings"}}
+TRAIN_PORTED = {"Optimizer": {"state_specs"}, "restore": {"shardings"}}
 #: the reference's private helpers whose work the port does elsewhere: the
 #: flatten by ``jax.tree_util`` (``repro_torch.pytree``)
 TRAIN_PRIVATE_GONE = {"_flatten"}
@@ -232,7 +232,7 @@ def test_training_surfaces_match(name):
     class and (for the package) export is in the port, every keyword
     parameter of each (a NamedTuple's fields, a class's ``__init__`` and
     public methods) too, up to :data:`TRAIN_DEPARTURES` and
-    :data:`TRAIN_WAITING`."""
+    with :data:`TRAIN_PORTED`'s among them."""
     ref = importlib.import_module(f"repro.{name}")
     port = importlib.import_module(f"repro_torch.{name}")
     names = _own_names(ref) - TRAIN_PRIVATE_GONE
@@ -255,14 +255,13 @@ def test_training_surfaces_match(name):
             if pr is None or pq is None:
                 continue
             gone = [a for a in pr if a not in pq
-                    and TRAIN_DEPARTURES.get(a) not in pq
-                    and a not in TRAIN_WAITING.get(label, ())]
+                    and TRAIN_DEPARTURES.get(a) not in pq]
             if gone:
                 wrong[label] = gone
     assert wrong == {}
-    for label, waiting in TRAIN_WAITING.items():
+    for label, ported in TRAIN_PORTED.items():
         if hasattr(port, label):
-            assert not set(_params(getattr(port, label))) & waiting
+            assert ported <= set(_params(getattr(port, label)))
 
 
 def test_serve_surface_matches():
@@ -508,3 +507,80 @@ def test_launch_counts_lose_nothing_under_threads(monkeypatch):
         assert ops.LAUNCHES["postings_counts"] == n_threads * per
     finally:
         ops.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# the launch layer
+# ---------------------------------------------------------------------------
+
+#: the launch layer's departures (ROADMAP.md §3): no compiled artifact,
+#: so no ``from_compiled`` (the counter's ``from_counts`` stands there); no
+#: ``shard_map_compat`` (the port's sharded execution is
+#: ``core.distributed``'s single-controller loop); the per-device memory
+#: comes from the plan's shardings, not from a compiled artifact
+LAUNCH_GONE = {"launch.roofline": {"from_compiled"},
+               "launch.sharding": {"shard_map_compat"}}
+LAUNCH_RENAMED = {"compiled": "plan"}
+LAUNCH_MODULES = ["launch.flags", "launch.mesh", "launch.sharding",
+                  "launch.roofline", "launch.cells"]
+
+
+@pytest.mark.parametrize("name", LAUNCH_MODULES)
+def test_launch_surfaces_match(name):
+    """``repro.<name>`` against ``repro_torch.<name>``: every function and
+    class (private ones too) but :data:`LAUNCH_GONE` is in the port, with
+    every keyword parameter (a dataclass's fields, a class's public
+    methods); the port adds only keywords (``device=``, ``seed=``,
+    ``host=``: the ``meta`` stand-ins and the ``--host`` run)."""
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    gone = LAUNCH_GONE.get(name, set())
+    names = _own_names(ref) - gone
+    assert gone <= _own_names(ref) and not gone & set(dir(port))
+    assert names - _own_names(port) == set()
+    wrong = {}
+    for n in sorted(names):
+        r, p = getattr(ref, n), getattr(port, n)
+        pairs = [(n, r, p)]
+        if inspect.isclass(r):
+            pairs += [(f"{n}.{m}", getattr(r, m), getattr(p, m, None))
+                      for m, v in vars(r).items()
+                      if not m.startswith("_") and callable(v)]
+        for label, rr, pp in pairs:
+            pr, pq = _params(rr), _params(pp)
+            if pr is None or pq is None:
+                continue
+            if pq[:len(pr)] != [LAUNCH_RENAMED.get(a, a) for a in pr]:
+                wrong[label] = (pr, pq)
+    assert wrong == {}
+    if name == "launch.mesh":
+        for const in ("PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW"):
+            assert isinstance(getattr(port, const), float)
+    if name == "launch.sharding":
+        assert set(port.DEFAULT_RULES.items()) == set(
+            ref.DEFAULT_RULES.items())
+
+
+def _ast_functions(path):
+    """The module-level functions of a source file and their parameters
+    (the reference's dry-run sets XLA_FLAGS when imported, so it is
+    read, not imported)."""
+    import ast
+    tree = ast.parse(Path(path).read_text())
+    return {f.name: [a.arg for a in f.args.args + f.args.kwonlyargs]
+            for f in tree.body if isinstance(f, ast.FunctionDef)}
+
+
+def test_dryrun_surface_and_flags_match():
+    from repro_torch.launch import dryrun
+    ref_src = ROOT / "src" / "repro" / "launch" / "dryrun.py"
+    port_src = Path(dryrun.__file__)
+    ref, port = _ast_functions(ref_src), _ast_functions(port_src)
+    assert set(ref) - set(port) == set()
+    for n, params in ref.items():
+        assert port[n][:len(params)] == [LAUNCH_RENAMED.get(a, a)
+                                         for a in params], n
+    flag = re.compile(r'add_argument\("(--[\w-]+)"')
+    assert set(flag.findall(port_src.read_text())) == set(
+        flag.findall(ref_src.read_text())) | {"--host"}
+    assert "dryrun_torch" in dryrun.RESULTS_DIR

@@ -700,3 +700,113 @@ def test_mesh_across_cards_matches_one_device(cuda, kind):
         pytest.skip("needs two or more CUDA devices")
     _mesh_matches_one_device(torch.device("cuda", 0),
                              make_cooc_mesh(shard=kind))
+
+
+# ---------------------------------------------------------------------------
+# the launch layer on the card
+# ---------------------------------------------------------------------------
+
+
+def _gpu_kernel_args(name, device):
+    """Operands of one launch of kernel ``name`` on ``device``."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    if name in ("postings_counts", "level_step"):
+        masks = torch.randint(-2 ** 31, 2 ** 31, (8, 40), generator=g,
+                              dtype=torch.int32).to(device)
+        packed = torch.randint(-2 ** 31, 2 ** 31, (40, 256), generator=g,
+                               dtype=torch.int32).to(device)
+        if name == "postings_counts":
+            return (masks, packed), {}
+        terms = torch.arange(8, dtype=torch.int32, device=device)
+        valid = torch.ones(8, dtype=torch.bool, device=device)
+        visited = torch.zeros(2, 256, dtype=torch.bool, device=device)
+        return (masks, packed, terms, valid, visited), dict(v=256, k=16)
+    if name == "cooccur_counts":
+        x = torch.randint(0, 2, (128, 64), generator=g,
+                          dtype=torch.int8).to(device)
+        xt = x.t().contiguous().t()            # doc axis contiguous
+        return (xt, xt), {}
+    if name == "dot_interaction":
+        return (torch.randn(64, 27, 64, generator=g).to(device),), {}
+    q = torch.randn(2, 8, 64, generator=g).to(device)
+    k = torch.randn(2, 256, 2, 64, generator=g).to(device)
+    return (q, k, k.clone()), {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["postings_counts", "level_step",
+                                  "cooccur_counts", "dot_interaction",
+                                  "flash_decode"])
+def test_kernel_launches_charge_their_meta_counts(cuda, name):
+    """A launch on the card charges a Counter exactly what its ``meta``
+    stand-in charges: the launch layer's FLOP gate rests on it."""
+    from repro_torch.launch.roofline import Counter
+    call = getattr(ops, name)
+    got = {}
+    for dev in (cuda, torch.device("meta")):
+        args, kw = _gpu_kernel_args(name, dev)
+        if name == "flash_decode":
+            kw = dict(length=torch.full((2,), 200, device=dev))
+        with Counter() as c:
+            call(*args, **kw)
+        got[dev.type] = c.kernels[name], c.kernel_ops
+    assert got["cuda"] == got["meta"]
+    assert got["cuda"][0]["launches"] == 1 and got["cuda"][1] > 0
+
+
+@pytest.fixture
+def small_cells(monkeypatch):
+    """dlrm-rm2 at 1,000 rows a field and the CSL index at 256 terms and
+    1,500 docs, for the dry-run's card path."""
+    import importlib
+    from repro_torch.configs import _ARCH_MODULES, replace
+    for arch, kw in [("dlrm-rm2", dict(vocab_per_field=1000)),
+                     ("cooccur-csl", dict(vocab_size=256, n_docs=1500))]:
+        m = importlib.import_module(_ARCH_MODULES[arch])
+        monkeypatch.setattr(m, "CONFIG", replace(m.CONFIG, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape,method", [
+    ("dlrm-rm2", "serve_p99", None), ("dlrm-rm2", "train_batch", None),
+    ("gin-tu", "molecule", None), ("cooccur-csl", "query_bfs_d3", "gemm"),
+    ("cooccur-csl", "query_bfs_d3", "fused"),
+    ("cooccur-csl", "query_batch", "pallas"),
+    ("cooccur-csl", "build_full", None)])
+def test_dryrun_host_cell_counts_what_meta_counts(cuda, small_cells,
+                                                  monkeypatch, arch, shape,
+                                                  method):
+    """``dryrun.host_cell`` on the card: the counted FLOPs equal the
+    ``meta`` plan's, the outputs are finite, a step is timed and the peak
+    read from the allocator."""
+    from repro_torch.launch import dryrun as DR
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if method:
+        monkeypatch.setenv("REPRO_COOC_METHOD", method)
+    meta, = DR.plan_records(arch, shape, (), None, "scan", verbose=False)
+    rec, _ = DR.host_cell(arch, shape, meta, device=cuda, mode="scan",
+                          verbose=False)
+    assert rec["status"] == "ok" and rec["mesh"].startswith("host-")
+    assert rec["counts"]["flops"] == meta["counts"]["flops"]
+    assert rec["counts"]["kernels"] == meta["counts"]["kernels"]
+    assert rec["counts"]["flops"] + rec["counts"]["kernel_ops"] > 0
+    assert rec["t_step_s"] > 0
+    assert rec["memory"]["peak_per_device_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_restore_shards_onto_the_card(cuda, tmp_path):
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "b": torch.arange(8, dtype=torch.bfloat16)}
+    checkpoint.save(str(tmp_path), 1, tree)
+    mesh = make_mesh((2, 1), ("data", "model"), [cuda] * 2)
+    sh = {k: S.NamedSharding(mesh, S.P("data")) for k in tree}
+    got, _ = checkpoint.restore(str(tmp_path), tree, shardings=sh)
+    for k, v in got.items():
+        assert isinstance(v, S.ShardedTensor)
+        assert all(s.is_cuda for s in v.shards.values())
+        assert torch.equal(v.gather("cpu"), tree[k])
