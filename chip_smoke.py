@@ -20,7 +20,9 @@ through the dot-interaction kernel, runs the flash-decode kernel at
 llama3-8b's decode cells, serves llama3-8b and deepseek-v2-lite-16b
 at full size through the LM decode server, serves DeepFM, SASRec,
 BERT4Rec and GIN at their published widths, trains, and plans the
-reference's dry-run cells and runs those that fit the card.  Phases:
+reference's dry-run cells and runs those that fit the card.  Last, it
+answers ids out of range on each path as the reference does and runs
+the port's examples.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
   2. parity       the three CSL kernels == their plain versions, exact, at
@@ -194,12 +196,31 @@ two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
 imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 
+ 18. ids          ids out of range on the card, each path used again in
+                  the same process after it: a CoocServer lane, unsharded
+                  and on a term mesh of MESH_SHARDS shards, takes one
+                  batch under all four methods mixing seeds V and V + 3
+                  with good ones (4,000 CSL-shaped docs, 1,024 terms),
+                  then a later query: every answer == ``construct`` on
+                  the CPU; llama3-8b at full width and 2 layers (bf16)
+                  serves a prompt with a token past the vocab among good
+                  ones: its stream all 0, the others == a run without it;
+                  dlrm-rm2 (through kernel 4), deepfm and sasrec
+                  ``serve_fn`` with bad ids in a few samples and GIN over
+                  a bad edge: NaN exactly where the CPU puts it, the rest
+                  within IDS_CPU_TOL; a synchronize after each, so that an
+                  asynchronous device assert would surface in the phase
+ 19. examples     the port's nine examples (``examples/torch_*.py``) at
+                  their smallest arguments, each in its own process on
+                  the card, EXAMPLES_JOBS at a time: each exits 0
+
 ``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
 compare kernel 4 between two trees on one card, and prints no result line;
 ``--lm-only`` runs phases 1 and 14 alone and ``--side-only`` phases 1
 and 15 alone, ``--train-only`` phases 1 and 16 alone, ``--launch-only``
-phases 1 and 17 alone; none of them prints a result line.  Every phase
-but 16 and 17 serves, and runs without an autograd graph.
+phases 1 and 17 alone, ``--ids-only`` phases 1, 18 and 19 alone; none
+of them prints a result line.  Every phase
+but 16, 17 and 19 serves, and runs without an autograd graph.
 """
 from __future__ import annotations
 
@@ -400,6 +421,21 @@ def _timed_call(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t) * 1e3
+
+
+def call_us(fn, reps: int = 200) -> float:
+    """Wall time of one call of ``fn`` (us) over ``reps`` calls back to
+    back, after one warm-up, the card synchronized before and after: for
+    a few small kernels, which the card runs faster than the host
+    launches them, the host's cost a call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e6 / reps
 
 
 def oracle_edges(hidx, seeds, depth, topk, beam):
@@ -2680,6 +2716,17 @@ def phase_dlrm(dev, launches):
         p50_ms=f"{p50:.4f}", p99_ms=f"{p99v:.4f}",
         samples_per_s=f"{p99_rate:.1f}",
         max_abs_err_vs_f64=f"{errs['serve_p99']:.3g}")
+    # the served id check's host cost a serve_p99 call: the flat row ids
+    # (the gather needs them anyway), then the rows, the (B,) mask and
+    # the NaN fill of the dense vector (models/recsys.py::interaction_input)
+    ids = p99[0]["sparse_ids"]
+    dense = torch.zeros((SERVE_P99, cfg.embed_dim), device=dev)
+
+    def id_check():
+        ok = R._served_rows(cfg, model.table, ids)[1]
+        return torch.where(ok[:, None], dense, float("nan"))
+    say("dlrm", shape="serve_p99", id_check_us=f"{call_us(id_check):.2f}",
+        flat_ids_us=f"{call_us(lambda: R._flat_field_ids(cfg, ids)):.2f}")
     say("dlrm", shape="serve_bulk", batch=SERVE_BULK, batches=len(bulk_ms),
         ms=" ".join(f"{m:.3f}" for m in bulk_ms),
         samples_per_s=f"{bulk_rate:.1f}",
@@ -3068,6 +3115,7 @@ def _lm_serve(dev, arch, n_req, new_tokens):
     """One arch at full width and depth through ``DecodeServer``."""
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.models.layers import take
     from repro_torch.serve import DecodeServer
     cfg = lm_config(arch)
     torch.cuda.synchronize()
@@ -3121,6 +3169,11 @@ def _lm_serve(dev, arch, n_req, new_tokens):
 
     # one full decode step: every slot at its last position
     tok = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    # its token embedding's host cost: take (the id check and the NaN
+    # fill) against plain indexing
+    say("lm", arch=arch, tokens=LM_SLOTS,
+        embed_take_us=f"{call_us(lambda: take(model.embed, tok)):.2f}",
+        embed_index_us=f"{call_us(lambda: model.embed[tok]):.2f}")
     cache = {"kv": srv.cache["kv"],
              "length": torch.tensor(srv.slot_pos, device=dev)}
     fields = {}
@@ -4460,6 +4513,344 @@ def phase_launch(dev):
     return launches
 
 
+# ids out of range, answered as the reference answers them: a CSL-shaped
+# corpus (the reference's serve_realtime example: 4,000 docs over 1,024
+# terms), its lane batch of IDS_SEEDS_PER_METHOD requests a method with
+# seeds V and V + 3 among them; llama3-8b at full width and IDS_LM_LAYERS
+# layers, bf16, IDS_LM_PROMPTS prompts through IDS_LM_SLOTS slots; the
+# recommenders at the reference's reduced tables (1,000 rows a field or
+# items) and IDS_BATCH samples, the same weights on the CPU; GIN over a
+# synthetic graph of IDS_GIN (nodes, edges)
+IDS_DOCS, IDS_TERMS = 4000, 1024
+IDS_PLAN = dict(depth=2, topk=8, beam=16)
+IDS_LM_LAYERS, IDS_LM_SLOTS, IDS_LM_PROMPTS, IDS_LM_NEW = 2, 4, 5, 8
+IDS_GRAD_TOKENS = 1 << 18               # above llama3-8b's 128,256 rows
+IDS_BATCH, IDS_CANDIDATES = 16_384, 100
+IDS_GIN = (4096, 32_768)
+IDS_CPU_TOL = 1e-4
+
+
+def _ids_slots(net):
+    import torch
+    return np.stack([np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                else a).astype(np.int64)
+                     for a in (net.src, net.dst, net.weight, net.valid)])
+
+
+def _ids_cooc(dev):
+    """A CoocServer lane on the card, unsharded and on a term mesh of
+    MESH_SHARDS shards of it, takes one batch of requests under all four
+    methods that mixes seeds V and V + 3 with good ones, then a later
+    query: every response ok and equal to ``construct`` on the CPU."""
+    import asyncio
+    import torch
+    from repro_torch.core import (QueryContext, QuerySpec, construct,
+                                  make_cooc_mesh)
+    from repro_torch.data import synthetic_csl
+    from repro_torch.serve import (AdmissionPolicy, CoocServer, ServerConfig,
+                                   TenantConfig)
+    docs = synthetic_csl(IDS_DOCS, IDS_TERMS, seed=0)
+    v = IDS_TERMS
+    host = QueryContext.from_docs(docs, v, device="cpu")
+    df = host.index.doc_freq.numpy()
+    hot = [int(t) for t in np.argsort(-df, kind="stable")[:4]]
+    seeds = [(hot[0],), (v,), (v + 3,), (hot[1], v), (hot[2],)]
+    reqs = [(m, s) for m in ("gemm", "popcount", "pallas", "fused")
+            for s in seeds]
+    want = {(m, s): _ids_slots(construct(host, QuerySpec(
+        seeds=s, method=m, **IDS_PLAN)).network) for m, s in reqs}
+    later_want = _ids_slots(construct(host, QuerySpec(
+        seeds=(hot[3],), **IDS_PLAN)).network)
+    for mesh in (None, "terms"):
+        kw = {} if mesh is None else dict(mesh=make_cooc_mesh(
+            devices=[dev] * MESH_SHARDS, shard=mesh))
+        ctx = QueryContext.from_docs(docs, v, device=dev, **kw)
+
+        async def go():
+            server = CoocServer(ctx, tenants=[TenantConfig("t")],
+                                config=ServerConfig(
+                                    q_batch=8, linger_ms=20.0,
+                                    default_deadline_ms=120_000.0,
+                                    policy=AdmissionPolicy(
+                                        max_queue_depth=64,
+                                        max_wait_ms=120_000.0),
+                                    **IDS_PLAN))
+            await server.start()
+            try:
+                first = await asyncio.wait_for(asyncio.gather(*[
+                    server.submit("t", dict(seeds=list(s), method=m))
+                    for m, s in reqs]), 300.0)
+                torch.cuda.synchronize()
+                later = await asyncio.wait_for(
+                    server.submit("t", [hot[3]]), 300.0)
+                torch.cuda.synchronize()
+            finally:
+                await server.stop()
+            return first, later
+
+        first, later = asyncio.run(go())
+        for (m, s), resp in zip(reqs, first):
+            if not resp.ok:
+                raise AssertionError(f"ids: {m} {s} on {mesh or 'one'} "
+                                     f"device: {resp.status} {resp.reason}")
+            if not np.array_equal(_ids_slots(resp.result.network),
+                                  want[m, s]):
+                raise AssertionError(f"ids: {m} {s} on {mesh or 'one'} "
+                                     "device != the CPU's answer")
+        if not (later.ok and np.array_equal(_ids_slots(later.result.network),
+                                            later_want)):
+            raise AssertionError(f"ids: the later query on {mesh or 'one'} "
+                                 "device != the CPU's answer")
+        say("ids", path="cooc_server", mesh=mesh or "none", terms=v,
+            requests=len(reqs), bad_seeds=f"{v},{v + 3}",
+            equal_to_cpu=True, later_query_ok=True)
+
+
+def _ids_lm(dev):
+    """llama3-8b at full width, IDS_LM_LAYERS layers, bf16 from a seeded
+    generator: a prompt with a token past the padded vocab among good
+    ones; its stream is all 0 (NaN logits argmax to 0, as the
+    reference's), the good streams equal a run without it."""
+    import torch
+    from repro_torch.configs import replace
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DecodeServer
+    cfg = replace(lm_config("llama3-8b"), n_layers=IDS_LM_LAYERS)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev, dtype=torch.bfloat16)
+    toks = lm_batch(cfg, IDS_LM_PROMPTS, 24, step=0)["tokens"]
+    lens = np.random.default_rng(0).integers(8, 25, IDS_LM_PROMPTS)
+    prompts = [toks[i, :lens[i]].tolist() for i in range(IDS_LM_PROMPTS)]
+    prompts[1][3] = cfg.padded_vocab + 7
+
+    def streams(ps):
+        srv = DecodeServer(cfg, model, slots=IDS_LM_SLOTS, max_len=64,
+                           device=dev)
+        rids = [srv.submit(p, max_new_tokens=IDS_LM_NEW) for p in ps]
+        done = {r.rid: r.out_tokens for r in srv.run_until_drained()}
+        torch.cuda.synchronize()
+        return [done[r] for r in rids]
+
+    with_bad = streams(prompts)
+    without = streams(prompts[:1] + prompts[2:])
+    if with_bad[1] != [0] * IDS_LM_NEW:
+        raise AssertionError(f"ids: the bad prompt's stream {with_bad[1]}")
+    if with_bad[:1] + with_bad[2:] != without:
+        raise AssertionError("ids: a bad prompt moved another stream")
+    later = streams(prompts[:1])
+    if later != without[:1]:
+        raise AssertionError("ids: a later decode differs")
+    say("ids", path="decode_server", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, bad_token=cfg.padded_vocab + 7,
+        good_streams_equal=True, later_decode_ok=True)
+    _ids_embed_grad(dev, model.embed.detach())
+    del model
+    torch.cuda.empty_cache()
+
+
+def _ids_embed_grad(dev, table):
+    """The embedding's gradient through ``take`` at more tokens than rows
+    (two of them out of range), as a training step at llama3-8b's
+    ``train_4k`` feeds it: the same bits in two runs, as ``cfg.remat``'s
+    gate in phase train compares gradients."""
+    import torch
+    from repro_torch.models.layers import take
+    n = IDS_GRAD_TOKENS
+    if n <= table.shape[0]:
+        raise AssertionError(f"ids: {n} tokens do not outnumber "
+                             f"{table.shape[0]} rows")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, table.shape[0], (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    tok[:2] = table.shape[0] + 7
+    tok[1] = -table.shape[0] - 1
+    up = torch.randn((n, table.shape[1]), generator=gen, device=dev,
+                     dtype=table.dtype)
+    grads = []
+    for _ in range(2):
+        with torch.enable_grad():
+            t = table.clone().requires_grad_()
+            (take(t, tok).nan_to_num(0.0) * up).sum().backward()
+        grads.append(t.grad)
+        del t
+    torch.cuda.synchronize()
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError("ids: the embedding's gradient differs between "
+                             "two runs")
+    say("ids", path="embed_grad", rows=table.shape[0], width=table.shape[1],
+        tokens=n, dtype=str(table.dtype).replace("torch.", ""),
+        same_bits=True)
+
+
+def _ids_close(what, got, want):
+    g, w = got.detach().cpu().numpy(), want.detach().numpy()
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"ids: {what}: NaN at other positions than on "
+                             "the CPU")
+    if not np.isnan(w).any():
+        raise AssertionError(f"ids: {what}: the bad id gave no NaN")
+    ok = ~np.isnan(w)
+    err = float(np.max(np.abs(g[ok] - w[ok]), initial=0.0))
+    if not np.allclose(g[ok], w[ok], rtol=IDS_CPU_TOL, atol=IDS_CPU_TOL):
+        raise AssertionError(f"ids: {what}: {err} from the CPU")
+    return int(np.isnan(w).reshape(len(w), -1).any(axis=1).sum()), err
+
+
+def _ids_models(dev):
+    """dlrm-rm2 ``serve_fn`` at IDS_BATCH samples (through kernel 4),
+    deepfm and sasrec, one bad id each in a few samples, and GIN over one
+    bad edge source and one bad destination: NaN exactly where the CPU
+    puts it, within IDS_CPU_TOL elsewhere; then a clean call."""
+    import torch
+    from repro_torch.configs import get_config, replace
+    from repro_torch.data import gnn_synthetic_graph, recsys_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    for arch in ("dlrm-rm2", "deepfm", "sasrec"):
+        cfg = replace(get_config(arch), **SIDE_REDUCED,
+                      seq_len=min(get_config(arch).seq_len, 16))
+        host = R.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        card = type(host)(cfg, device=dev)
+        card.load_state_dict(host.state_dict())
+        b = recsys_batch(cfg, IDS_BATCH, 1)
+        if arch == "sasrec":
+            n = min(len(b["seq"]), 1024)
+            b = {"seq": b["seq"][:n], "candidates": np.random.default_rng(
+                0).integers(0, cfg.n_items, (n, IDS_CANDIDATES)).astype(
+                    np.int32)}
+            bad = {k: v.copy() for k, v in b.items()}
+            bad["seq"][3, 2], bad["candidates"][5, 1] = 10 ** 6, -(10 ** 6)
+        else:
+            b = {k: b[k] for k in ("dense", "sparse_ids") if k in b}
+            bad = {k: v.copy() for k, v in b.items()}
+            bad["sparse_ids"][3, 2] = 10 ** 6
+            bad["sparse_ids"][5, 0] = -(10 ** 9)
+            bad["sparse_ids"][7, -1] = -1           # wraps into a row
+        got = R.serve_fn(cfg, card, R.as_batch(bad, dev))
+        torch.cuda.synchronize()
+        n_nan, err = _ids_close(arch, got, R.serve_fn(cfg, host, R.as_batch(
+            bad, "cpu")))
+        clean = R.serve_fn(cfg, card, R.as_batch(b, dev))
+        torch.cuda.synchronize()
+        want = R.serve_fn(cfg, host, R.as_batch(b, "cpu"))
+        if not torch.allclose(clean.cpu(), want, rtol=IDS_CPU_TOL,
+                              atol=IDS_CPU_TOL):
+            raise AssertionError(f"ids: {arch}: a later serve_fn differs")
+        say("ids", path="serve_fn", arch=arch, batch=len(next(iter(
+            b.values()))), nan_samples=n_nan, max_abs_err_vs_cpu=f"{err:.3g}",
+            later_serve_ok=True)
+        del host, card
+    cfg = get_config("gin-tu")
+    n, e = IDS_GIN
+    g = gnn_synthetic_graph(n, e, 32, 8, seed=0)
+    g["edge_src"][5], g["edge_dst"][9] = n, n + 3
+    host = G.init_gin(cfg, torch.Generator().manual_seed(0), 32, 8,
+                      device="cpu")
+    card = G.GIN(cfg, 32, 8, device=dev)
+    card.load_state_dict(host.state_dict())
+    hb = {k: torch.from_numpy(v) for k, v in g.items()}
+    args = ("x", "edge_src", "edge_dst")
+    got = G.gin_forward(cfg, card, *(hb[k].to(dev) for k in args))
+    torch.cuda.synchronize()
+    n_nan, err = _ids_close("gin-tu", got, G.gin_forward(
+        cfg, host, *(hb[k] for k in args)))
+    say("ids", path="gin_forward", nodes=n, edges=e, nan_nodes=n_nan,
+        max_abs_err_vs_cpu=f"{err:.3g}")
+
+
+@serving
+def phase_ids(dev):
+    """Ids out of range on the card, each path then used again in the
+    same process.  Returns the phase's kernel launches."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    _ids_cooc(dev)
+    _ids_lm(dev)
+    _ids_models(dev)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name in ("postings_counts", "level_step", "dot_interaction"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase ids never launched {name}")
+    say("ids", launches=json.dumps(launches),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
+# the port's examples (examples/torch_*.py) at their smallest arguments,
+# EXAMPLES_JOBS at a time, each in its own process on the card
+EXAMPLES = (("torch_quickstart.py",), ("torch_full_network.py",),
+            ("torch_streaming_window.py",), ("torch_snapshot_restore.py",),
+            ("torch_sharded_query.py",), ("torch_serve_realtime.py",),
+            ("torch_item_cooccur_recsys.py",),
+            ("torch_cooccur_to_gnn.py", "--steps", "3"),
+            ("torch_train_lm.py", "--steps", "3", "--batch", "2", "--seq",
+             "32", "--ckpt-dir", "{tmp}/lm_ckpt"))
+EXAMPLES_JOBS, EXAMPLES_TIMEOUT_S = 3, 300
+
+
+def phase_examples(dev):
+    """Each of EXAMPLES run in a subprocess on ``dev`` (``--device``); each
+    must exit 0.  Prints each one's seconds and last line."""
+    import os
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="examples-")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    todo = list(EXAMPLES)
+    running = []
+    failed = []
+    try:
+        while todo or running:
+            while todo and len(running) < EXAMPLES_JOBS:
+                script, *args = todo.pop(0)
+                cmd = [sys.executable, str(ROOT / "examples" / script),
+                       *(a.format(tmp=tmp) for a in args),
+                       "--device", dev.type]
+                log = open(os.path.join(tmp, script + ".log"), "w+")
+                running.append((script, log, time.perf_counter(),
+                                subprocess.Popen(cmd, env=env, stdout=log,
+                                                 stderr=subprocess.STDOUT,
+                                                 cwd=str(ROOT))))
+            time.sleep(0.2)
+            for item in list(running):
+                script, log, t1, proc = item
+                if proc.poll() is None:
+                    if time.perf_counter() - t1 < EXAMPLES_TIMEOUT_S:
+                        continue
+                    proc.kill()
+                    proc.wait()
+                running.remove(item)
+                log.seek(0)
+                lines = log.read().splitlines()
+                log.close()
+                say("examples", script=script, rc=proc.returncode,
+                    seconds=f"{time.perf_counter() - t1:.1f}",
+                    last=repr(lines[-1] if lines else ""))
+                if proc.returncode != 0:
+                    failed.append(script)
+                    print("\n".join(lines[-20:]), flush=True)
+    finally:
+        for _, log, _, proc in running:
+            proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    say("examples", scripts=len(EXAMPLES), ok=True,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main(argv=()) -> int:
     import argparse
     import torch
@@ -4479,6 +4870,9 @@ def main(argv=()) -> int:
     ap.add_argument("--launch-only", action="store_true",
                     help="build the kernels and run the launch phase, "
                          "nothing else; prints no result line")
+    ap.add_argument("--ids-only", action="store_true",
+                    help="build the kernels and run the ids and examples "
+                         "phases, nothing else; prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4509,6 +4903,12 @@ def main(argv=()) -> int:
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(card, flush=True)
         return 0
+    if args.ids_only:
+        phase_ids(dev)
+        phase_examples(dev)
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(card, flush=True)
+        return 0
     phase_parity(dev)
     phase_strings(dev)
     ctx, hidx, seeds, launches = phase_csl(dev)
@@ -4533,8 +4933,11 @@ def main(argv=()) -> int:
                        backward_ms=train["backward"]["ms"],
                        backward_bound_ms=train["backward"]["bound_ms"])
     launch = phase_launch(dev)
+    ids = phase_ids(dev)
     for k in kernels:
         k["launch_launches"] = launch[k["name"]]
+        k["ids_launches"] = ids[k["name"]]
+    phase_examples(dev)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

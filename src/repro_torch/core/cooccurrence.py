@@ -402,7 +402,12 @@ def initial_state(index: PackedIndex, seed_terms, *, beam: int,
                   scope_mask: Optional[torch.Tensor] = None) -> BFSState:
     """The depth-0 frontier of Q queries: seed_terms (Q, S) padded with -1
     (S <= beam).  Row ``q * beam + j`` holds seed j of query q, its filter
-    the seed's postings ANDed with ``scope_mask``; every seed is visited."""
+    the seed's postings ANDed with ``scope_mask``; every seed is visited.
+
+    A seed id of ``vocab_size`` or more is answered as the reference's
+    clamping gather answers it: its filter is column ``V - 1``, its label
+    stays its own id, and it is not visited (the reference's scatter drops
+    it).  No gather or scatter here reads an index out of bounds."""
     dev = index.packed.device
     seeds = torch.as_tensor(seed_terms, device=dev).to(torch.int64)
     q, s = seeds.shape
@@ -412,7 +417,8 @@ def initial_state(index: PackedIndex, seed_terms, *, beam: int,
     v, w = index.vocab_size, index.n_words
     seed_valid = seeds >= 0
     sc = seeds.clamp(min=0)
-    post = index.packed.index_select(1, sc.reshape(-1)).T.reshape(q, s, w)
+    col = sc.clamp(max=v - 1)
+    post = index.packed.index_select(1, col.reshape(-1)).T.reshape(q, s, w)
     masks0 = torch.zeros((q, b, w), dtype=torch.int32, device=dev)
     masks0[:, :s] = torch.where(seed_valid[..., None], post, 0)
     if scope_mask is not None:
@@ -422,7 +428,7 @@ def initial_state(index: PackedIndex, seed_terms, *, beam: int,
     valid0 = torch.zeros((q, b), dtype=torch.bool, device=dev)
     valid0[:, :s] = seed_valid
     visited0 = torch.zeros((q, v), dtype=torch.int32, device=dev).scatter_add(
-        1, sc, seed_valid.to(torch.int32)) > 0
+        1, col, (seed_valid & (sc < v)).to(torch.int32)) > 0
     return BFSState(masks0.reshape(q * b, w), terms0.reshape(-1),
                     valid0.reshape(-1), visited0)
 

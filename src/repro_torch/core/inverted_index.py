@@ -199,8 +199,13 @@ def empty_mask(index: PackedIndex) -> torch.Tensor:
 
 def term_postings(index: PackedIndex, term_id) -> torch.Tensor:
     """Postings bitmap of one term: column ``term_id`` of ``packed``,
-    (W,) int32 bit patterns."""
-    return index.packed[:, int(term_id)]
+    (W,) int32 bit patterns.  An id out of range is read as the
+    reference's ``dynamic_index_in_dim`` reads it: one in [-V, 0) counts
+    from the end, and any other is clamped to [0, V - 1]."""
+    v = index.vocab_size
+    t = int(term_id)
+    t = t + v if t < 0 else t
+    return index.packed[:, min(max(t, 0), v - 1)]
 
 
 def and_term(index: PackedIndex, mask: torch.Tensor,

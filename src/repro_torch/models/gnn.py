@@ -4,8 +4,10 @@ passing: the port of ``repro.models.gnn``, differentiable.
 GIN update: h' = LN(relu(MLP((1 + eps) * h + sum_{j in N(i)} h_j))), with
 LayerNorm where the original GIN has BatchNorm (the reference's
 substitution, kept).  A layer gathers the source rows of every edge
-(``index_select``) and sums them into their destinations (``index_add_``,
-the reference's ``segment_sum``).  On a CUDA device ``index_add_`` on fp32
+(``index_select``, the reference's ``jnp.take``) and sums them into
+their destinations (``index_add_``, the reference's ``segment_sum``); an
+edge's id out of range is answered as the reference answers it (a NaN
+source row, a dropped destination), the ids checked once a pass.  On a CUDA device ``index_add_`` on fp32
 adds with atomics, so the order of each node's sum, and the last bits of
 its value, may change from run to run; on the CPU it adds in edge order.
 ``edge_mask`` zeroes the padded edges of a fixed-shape sampled subgraph.
@@ -26,8 +28,11 @@ from torch import nn
 from repro_torch import pytree
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (ParamMaker, assign_from_reference, mm,
-                                       reference_tensor, require_full_fp32)
+from repro_torch.models.layers import (ParamMaker, append_nan_row,
+                                       assign_from_reference, mm,
+                                       nan_row_ids, reference_tensor,
+                                       require_full_fp32, segment_sum,
+                                       spare_segment_ids, take_along_last)
 
 
 class GINLayer(nn.Module):
@@ -116,16 +121,33 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return ((xf - mu) * torch.rsqrt(var + 1e-5) * g).to(x.dtype)
 
 
+def _edge_rows(edge_src: torch.Tensor, edge_dst: torch.Tensor, n: int):
+    """The edges' (source, destination) rows for :func:`_aggregate_rows`,
+    as the reference's ``jnp.take`` and ``segment_sum`` answer them over
+    n nodes: a source out of range reads a NaN row (row n of the sources
+    with one appended), a destination out of range adds into a spare row
+    n that is dropped."""
+    return nan_row_ids(edge_src, n), spare_segment_ids(edge_dst, n)
+
+
+def _aggregate_rows(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                    edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    n = h.shape[0]
+    msg = torch.index_select(append_nan_row(h), 0, src)    # (E, d) gather
+    if edge_mask is not None:
+        msg *= edge_mask[:, None].to(msg.dtype)
+    agg = torch.zeros((n + 1, h.shape[1]), dtype=h.dtype, device=h.device)
+    return agg.index_add_(0, dst, msg)[:n]
+
+
 def _aggregate(h: torch.Tensor, edge_src: torch.Tensor,
                edge_dst: torch.Tensor,
                edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum aggregation: each node's sum of its in-edges' source rows (N,
-    d), the masked edges adding zero."""
-    msg = torch.index_select(h, 0, edge_src)               # (E, d) gather
-    if edge_mask is not None:
-        msg *= edge_mask[:, None].to(msg.dtype)
-    agg = torch.zeros_like(h)
-    return agg.index_add_(0, edge_dst, msg)
+    d), the masked edges adding zero; an edge id out of range as
+    :func:`_edge_rows` answers it."""
+    return _aggregate_rows(h, *_edge_rows(edge_src, edge_dst, h.shape[0]),
+                           edge_mask)
 
 
 def gin_forward(cfg: GNNConfig, model: GIN, x: torch.Tensor,
@@ -135,8 +157,9 @@ def gin_forward(cfg: GNNConfig, model: GIN, x: torch.Tensor,
     d_hidden).  ``edge_mask`` (E,) masks padded edges."""
     require_full_fp32(x, "GIN's layers")
     h = x
+    src, dst = _edge_rows(edge_src, edge_dst, x.shape[0])   # once a pass
     for lp in model.layers:
-        agg = _aggregate(h, edge_src, edge_dst, edge_mask)
+        agg = _aggregate_rows(h, src, dst, edge_mask)
         eps = lp.eps if cfg.learnable_eps else lp.eps.detach()
         z = (1.0 + eps).to(h.dtype) * h + agg
         del agg
@@ -153,25 +176,27 @@ def node_logits(cfg: GNNConfig, model: GIN, h: torch.Tensor) -> torch.Tensor:
 
 def graph_logits(cfg: GNNConfig, model: GIN, h: torch.Tensor,
                  graph_id: torch.Tensor, n_graphs: int) -> torch.Tensor:
-    """Sum-pool each graph's node rows, then classify: (n_graphs, C)."""
-    pooled = torch.zeros((n_graphs, h.shape[1]), dtype=h.dtype,
-                         device=h.device)
-    pooled.index_add_(0, graph_id, h)
+    """Sum-pool each graph's node rows, then classify: (n_graphs, C).  A
+    node whose graph id is out of range is dropped, as the reference's
+    ``segment_sum`` drops it."""
+    pooled = segment_sum(h, graph_id, n_graphs)
     return mm(pooled, model.out) + model.out_b
 
 
 def _first_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """The index of each row's first maximum, as ``jnp.argmax`` gives."""
+    """The index of each row's first maximum, as ``jnp.argmax`` gives: a
+    NaN counts as the maximum."""
     top = torch.amax(logits, dim=-1, keepdim=True)
     cols = torch.arange(logits.shape[-1], device=logits.device)
-    return torch.where(logits == top, cols, logits.shape[-1]).amin(dim=-1)
+    first = (logits == top) | torch.isnan(logits)
+    return torch.where(first, cols, logits.shape[-1]).amin(dim=-1)
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     """(logsumexp - the gold logit) per row, and whether the first argmax
     is the label."""
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.to(torch.int64)[:, None])[:, 0]
+    gold = take_along_last(logits, labels)
     hit = (_first_argmax(logits) == labels).to(torch.float32)
     return lse - gold, hit
 

@@ -184,6 +184,86 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return mm(h, w2)
 
 
+# -- ids from a caller ---------------------------------------------------------
+#
+# The reference gathers and scatters by a caller's ids under JAX's rules,
+# which answer an id out of range; torch's ops raise instead, and on a card
+# they stop with a device-side assert that leaves the process's context
+# unusable.  These helpers give the reference's answers: each first brings
+# the index tensor into bounds, so no launch reads or writes out of them,
+# then answers the ids that were out of range as the reference does (a NaN
+# row, or a dropped contribution); none waits on the card.
+
+
+def _index(ids: torch.Tensor) -> torch.Tensor:
+    """``ids`` as an index tensor: int32 stays int32 (half the bytes, and
+    the index kernels' int32 path), anything else becomes int64."""
+    return ids if ids.dtype == torch.int32 else ids.to(torch.int64)
+
+
+def take_ids(ids: torch.Tensor, n: int):
+    """(ids in [0, n), in range) for a gather over n rows under
+    ``jnp.take``'s default mode: an id in [-n, 0) counts from the end; any
+    other id out of range is marked, and its row (that of the end it lies
+    past, in bounds) is the caller's to fill."""
+    ids = _index(ids)
+    c = ids.clamp(-n, n - 1)
+    return c.remainder(max(n, 1)), c == ids
+
+
+def nan_row_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Row ids into an n-row table with a NaN row appended at n
+    (:func:`append_nan_row`): ``jnp.take``'s answer to each id."""
+    idx, ok = take_ids(ids, n)
+    return torch.where(ok, idx, n)
+
+
+def append_nan_row(table: torch.Tensor) -> torch.Tensor:
+    return torch.cat([table, torch.full((1,) + table.shape[1:], float("nan"),
+                                        dtype=table.dtype,
+                                        device=table.device)])
+
+
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: table (n, ...) rows by ids (...) ->
+    (..., ...), a NaN row for an id out of range (the reference's fill).
+    The rows are gathered by ``embedding``, whose backward gives the same
+    bits from run to run on a card (it sorts the ids before it adds) and
+    on the CPU (where indexing's backward adds in parallel and does not)."""
+    n = table.shape[0]
+    idx, ok = take_ids(ids, n)
+    rows = nn.functional.embedding(idx, table.reshape(n, -1))
+    return torch.where(ok.reshape(ok.shape + (1,) * (table.dim() - 1)),
+                       rows.reshape(ids.shape + table.shape[1:]),
+                       float("nan"))
+
+
+def take_along_last(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take_along_axis(x, ids[..., None], axis=-1)[..., 0]``: x (...,
+    C), ids (...) -> (...), NaN for an id out of range."""
+    idx, ok = take_ids(ids, x.shape[-1])
+    return torch.where(ok, torch.gather(x, -1, idx.to(torch.int64)[..., None])
+                       [..., 0], float("nan"))
+
+
+def spare_segment_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Segment ids for a scatter into n rows plus one spare row: every id
+    outside [0, n) goes to row n, which the caller drops, as the
+    reference's ``segment_sum`` and ``segment_max`` drop such ids."""
+    ids = _index(ids)
+    return torch.where((ids >= 0) & (ids < n), ids, n)
+
+
+def segment_sum(data: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: data (T, ...) summed into (num_segments,
+    ...) rows by ids (T,), an id out of range dropped."""
+    out = torch.zeros((num_segments + 1,) + data.shape[1:], dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, spare_segment_ids(ids, num_segments),
+                          data)[:num_segments]
+
+
 # -- the reference's parameters ------------------------------------------------
 
 

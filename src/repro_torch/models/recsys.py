@@ -34,12 +34,25 @@ layout (``x @ w + b``).
 
 The losses are differentiable; ``serve_fn`` and ``retrieval_fn`` run
 without a graph.  A table's gradient is dense, as the reference's
-``jnp.take`` gives it (``index_select``'s backward adds into a zeroed
-table; on a card with atomics, so its last bits may vary from run to
-run).  Ids must lie in range: ``index_select`` raises a device assert
-on an id out of range, where the reference's ``jnp.take`` fills it
-(``recsys_batch`` never draws one).  The fp32 products run in full fp32;
-on a CUDA device they refuse to run while TF32 is allowed for them.
+``jnp.take`` gives it.  DLRM gathers with ``index_select``, whose
+backward adds into a zeroed table with atomics on a card, so its last
+bits may vary from run to run; the other models gather through
+:func:`layers.take` (``embedding``), whose backward sorts the ids first
+and gives the same bits in every run.
+
+An id out of range is answered as the reference's ``jnp.take`` answers
+it: one in [-n, 0) counts from the end of the n-row table, and any other
+gives a NaN row (:func:`layers.take`).  So a sequential model's output
+is NaN where the reference's is, and a DeepFM or DLRM sample that holds
+such an id scores NaN while every other sample is unchanged.  Served,
+DeepFM and DLRM gather an in-bounds row for it and make the sample's
+output NaN from a (B,) mask (DeepFM's logit, DLRM's dense vector, which
+reaches its logit), with no pass over the gathered rows.  No gather reads
+out of bounds.  A ragged bag's segment id out of range is dropped, as
+``segment_sum`` drops it.
+
+The fp32 products run in full fp32; on a CUDA device they refuse to run
+while TF32 is allowed for them.
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -56,7 +69,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamMaker, assign_from_reference,
                                        attention, mm, reference_tensor,
-                                       require_full_fp32, rmsnorm)
+                                       require_full_fp32, rmsnorm,
+                                       segment_sum, spare_segment_ids, take,
+                                       take_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +84,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """table (V, E); ids (..., M) multi-hot bags -> (..., E).  The mean of
     an empty bag (M = 0) is NaN, as the reference's."""
-    vecs = table[ids.to(torch.int64)]                      # (..., M, E)
+    vecs = take(table, ids)                                # (..., M, E)
     if weights is not None:
         vecs = vecs * weights[..., None]
     if combiner == "sum":
@@ -86,23 +101,22 @@ def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor,
                          combiner: str = "sum") -> torch.Tensor:
     """Ragged bags: flat_ids (T,), segment_ids (T,) -> (num_bags, E).  An
     empty bag sums to 0, averages to 0 and has max -inf, as the
-    reference's ``segment_sum`` / ``segment_max`` give."""
+    reference's ``segment_sum`` / ``segment_max`` give; a segment id out
+    of range is dropped, as theirs are."""
     if combiner not in ("sum", "mean", "max"):
         raise ValueError(combiner)
-    vecs = table[flat_ids.to(torch.int64)]
-    seg = segment_ids.to(torch.int64)
-    shape = (num_bags, table.shape[1])
+    vecs = take(table, flat_ids)
     if combiner == "max":
-        out = torch.full(shape, -torch.inf, dtype=vecs.dtype,
-                         device=vecs.device)
+        seg = spare_segment_ids(segment_ids, num_bags).to(torch.int64)
+        out = torch.full((num_bags + 1, table.shape[1]), -torch.inf,
+                         dtype=vecs.dtype, device=vecs.device)
         return out.scatter_reduce_(0, seg[:, None].expand_as(vecs), vecs,
-                                   "amax", include_self=True)
-    s = torch.zeros(shape, dtype=vecs.dtype, device=vecs.device)
-    s.index_add_(0, seg, vecs)
+                                   "amax", include_self=True)[:num_bags]
+    s = segment_sum(vecs, segment_ids, num_bags)
     if combiner == "sum":
         return s
-    c = torch.zeros((num_bags,), dtype=vecs.dtype, device=vecs.device)
-    c.index_add_(0, seg, torch.ones_like(seg, dtype=vecs.dtype))
+    c = segment_sum(torch.ones(segment_ids.shape, dtype=vecs.dtype,
+                               device=vecs.device), segment_ids, num_bags)
     return s / torch.clamp(c, min=1.0)[:, None]
 
 
@@ -156,9 +170,21 @@ def as_batch(batch: Mapping, device) -> Dict[str, torch.Tensor]:
 
 def _flat_field_ids(cfg: RecSysConfig, sparse_ids: torch.Tensor):
     """(B, F) per-field ids -> global row ids in the stacked table (int64)."""
-    offs = torch.arange(cfg.n_sparse, dtype=torch.int64,
-                        device=sparse_ids.device) * cfg.vocab_per_field
-    return sparse_ids.to(torch.int64) + offs[None, :]
+    offs = torch.arange(0, cfg.n_sparse * cfg.vocab_per_field,
+                        cfg.vocab_per_field, dtype=torch.int64,
+                        device=sparse_ids.device)
+    return sparse_ids + offs[None, :]
+
+
+def _served_rows(cfg: RecSysConfig, table: torch.Tensor,
+                 sparse_ids: torch.Tensor):
+    """(B, F) per-field ids -> (their rows in the stacked table, each in
+    bounds; (B,) whether every id of the sample lies in the table, as
+    ``jnp.take`` reads it).  The reference's NaN row reaches the whole
+    sample's logit, so a served model gathers in-bounds rows and sets the
+    other samples' output to NaN, with no pass over the gathered rows."""
+    rows, ok = take_ids(_flat_field_ids(cfg, sparse_ids), table.shape[0])
+    return rows, ok.all(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -203,17 +229,22 @@ def init_deepfm(cfg: RecSysConfig, generator: torch.Generator, *,
 def deepfm_logits(cfg: RecSysConfig, model: DeepFM,
                   batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """batch: sparse_ids (B, F) -> logits (B,) fp32."""
-    rows = _flat_field_ids(cfg, batch["sparse_ids"])
-    emb = model.table[rows]                                # (B, F, E)
+    if torch.is_grad_enabled():
+        rows = _flat_field_ids(cfg, batch["sparse_ids"])
+        emb, fm_w, ok = take(model.table, rows), take(model.fm_w, rows), None
+    else:
+        rows, ok = _served_rows(cfg, model.table, batch["sparse_ids"])
+        emb, fm_w = model.table[rows], model.fm_w[rows]    # (B, F, E)
     # FM first order
-    fo = torch.sum(model.fm_w[rows], dim=-1) + model.fm_b
+    fo = torch.sum(fm_w, dim=-1) + model.fm_b
     # FM second order: 0.5 * ((sum_f v)^2 - sum_f v^2), summed over E
     s = torch.sum(emb, dim=1)
     s2 = torch.sum(emb * emb, dim=1)
     so = 0.5 * torch.sum(s * s - s2, dim=-1)
     # deep branch
     deep = model.mlp(emb.reshape(emb.shape[0], -1))[:, 0]
-    return (fo + so + deep).to(torch.float32)
+    out = (fo + so + deep).to(torch.float32)
+    return out if ok is None else torch.where(ok, out, float("nan"))
 
 
 # ---------------------------------------------------------------------------
@@ -262,23 +293,32 @@ def interaction_input(cfg: RecSysConfig, model: DLRM,
     the bottom MLP's output, slots 1..F the embeddings.  Without a graph
     it is built in one preallocated tensor (``index_select(out=)``, which
     autograd refuses); with one, as the reference builds it, by a
-    concatenation."""
+    concatenation.  An id out of range gathers a NaN row with a graph (the
+    reference's ``jnp.take``); without one it gathers an in-bounds row and
+    sets the sample's dense vector to NaN (:func:`_served_rows`), which
+    carries to its logit as the reference's NaN row does."""
     ids = batch["sparse_ids"]
     if torch.is_grad_enabled():
         dense_vec = model.bot(batch["dense"].to(model.table.dtype),
                               final_act=True)
-        rows = _flat_field_ids(cfg, ids)
-        emb = torch.index_select(model.table, 0, rows.reshape(-1)).reshape(
-            rows.shape + (cfg.embed_dim,))
+        # one index_select, as the served path gathers (its backward adds
+        # into a zeroed table); a NaN row where jnp.take fills one
+        rows, ok = take_ids(_flat_field_ids(cfg, ids), model.table.shape[0])
+        emb = torch.where(ok[..., None], torch.index_select(
+            model.table, 0, rows.reshape(-1)).reshape(
+                rows.shape + (cfg.embed_dim,)), float("nan"))
         return dense_vec, torch.cat([dense_vec[:, None, :], emb], dim=1)
     b, f = ids.shape
     e = cfg.embed_dim
-    rows = torch.zeros((b, f + 1), dtype=torch.int64, device=ids.device)
-    rows[:, 1:] = _flat_field_ids(cfg, ids)
+    rows, ok = _served_rows(cfg, model.table, ids)
+    slots = torch.zeros((b, f + 1), dtype=torch.int64, device=ids.device)
+    slots[:, 1:] = rows
     x = torch.empty((b, f + 1, e), dtype=model.table.dtype,
                     device=model.table.device)
-    torch.index_select(model.table, 0, rows.view(-1), out=x.view(b * (f + 1), e))
-    dense_vec = model.bot(batch["dense"].to(model.table.dtype), final_act=True)
+    torch.index_select(model.table, 0, slots.view(-1),
+                       out=x.view(b * (f + 1), e))
+    dense_vec = torch.where(ok[:, None], model.bot(
+        batch["dense"].to(model.table.dtype), final_act=True), float("nan"))
     x[:, 0] = dense_vec
     return dense_vec, x
 
@@ -357,7 +397,7 @@ def _seq_encode(cfg: RecSysConfig, model: SeqRec, seq: torch.Tensor,
     b, s = seq.shape
     e, h = cfg.embed_dim, cfg.n_heads
     dh = e // h
-    x = model.item_emb[seq.to(torch.int64)] + model.pos_emb[None, :s]
+    x = take(model.item_emb, seq) + model.pos_emb[None, :s]
     require_full_fp32(x, "the sequential recommenders")
     for blk in model.blocks:
         xn = rmsnorm(x, blk.ln1)
@@ -387,7 +427,7 @@ def _causal(cfg: RecSysConfig) -> bool:
 def seqrec_scores(cfg: RecSysConfig, model: SeqRec, hidden: torch.Tensor,
                   item_ids: torch.Tensor) -> torch.Tensor:
     """Score hidden (..., E) against item_ids (..., C) -> (..., C), fp32."""
-    cand = model.item_emb[item_ids.to(torch.int64)]
+    cand = take(model.item_emb, item_ids)
     return torch.einsum("...e,...ce->...c", hidden.to(torch.float32),
                         cand.to(torch.float32))
 
@@ -399,8 +439,8 @@ def seqrec_loss(cfg: RecSysConfig, model: SeqRec,
     positions and pos / neg are the original / negative items there."""
     h = _seq_encode(cfg, model, batch["seq"], causal=_causal(cfg))
     h = h.to(torch.float32)
-    pe = model.item_emb[batch["pos"].to(torch.int64)].to(torch.float32)
-    ne = model.item_emb[batch["neg"].to(torch.int64)].to(torch.float32)
+    pe = take(model.item_emb, batch["pos"]).to(torch.float32)
+    ne = take(model.item_emb, batch["neg"]).to(torch.float32)
     ps = torch.sum(h * pe, dim=-1)
     ns = torch.sum(h * ne, dim=-1)
     m = batch["mask"].to(torch.float32)
@@ -528,6 +568,6 @@ def retrieval_fn(cfg: RecSysConfig, model,
         return (deepfm_logits if cfg.interaction == "fm" else dlrm_logits)(
             cfg, model, batch)
     h = _seq_encode(cfg, model, batch["seq"], causal=_causal(cfg))[:, -1]
-    ce = model.item_emb[batch["candidates"].to(torch.int64)]     # (C, E)
+    ce = take(model.item_emb, batch["candidates"])               # (C, E)
     return torch.einsum("be,ce->bc", h.to(torch.float32),
                         ce.to(torch.float32))

@@ -19,7 +19,10 @@ reference's is plain XLA), then writes every layer's entry with one
 scatter into the cache's ``kv`` tensor in place: the reference's serving
 jit donates that buffer.  A write at a position >= S is dropped, as the
 reference's out-of-range scatter drops it.  MoE layers route dropless at
-inference (capacity E / top_k).
+inference (capacity E / top_k).  A token id out of range embeds as a NaN
+row (:func:`layers.take`, the reference's ``jnp.take``): that sequence's
+logits are NaN and greedy decoding reads token 0, as the reference's
+``argmax`` does, and no other sequence of the batch changes.
 
 :func:`loss_fn` is the reference's chunked fp32 cross-entropy plus the
 MoE router's aux loss, differentiable; with ``cfg.remat`` each block is
@@ -53,6 +56,8 @@ from repro_torch.models.layers import (
     reference_tensor,
     rmsnorm,
     swiglu,
+    take,
+    take_along_last,
 )
 
 
@@ -360,7 +365,7 @@ def forward(cfg: LMConfig, model: LM, tokens: torch.Tensor,
         inference = emit_cache
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
-    h = model.embed[tokens.to(torch.int64)]
+    h = take(model.embed, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
     caches = []
@@ -415,7 +420,7 @@ def loss_fn(cfg: LMConfig, model: LM, batch: Dict[str, torch.Tensor], *,
         sl = slice(i * chunk, (i + 1) * chunk)
         logits = logits_for(cfg, model, h[:, sl])        # (B, chunk, Vp)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        gold = take_along_last(logits, labels[:, sl])
         tot = tot + torch.sum((lse - gold) * mask[:, sl])
         cnt = cnt + torch.sum(mask[:, sl])
     ce = tot / torch.clamp(cnt, min=1.0)
@@ -548,7 +553,7 @@ def decode_step(cfg: LMConfig, model: LM, cache: Dict[str, torch.Tensor],
     the same ``kv`` tensor and the lengths plus one."""
     pos = cache["length"]
     kv = cache["kv"]
-    h = model.embed[token.to(torch.int64)]                   # (B, d)
+    h = take(model.embed, token)                             # (B, d)
     entries = []
     for layer, p in enumerate(model.blocks()):
         h, entry = _decode_block(cfg, p, h, kv[layer], pos)

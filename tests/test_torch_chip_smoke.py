@@ -768,3 +768,78 @@ def test_chip_smoke_launch_only_runs_the_device_and_launch_phases(
     assert calls == ["device", "phase_launch"]
     out = capsys.readouterr().out
     assert '"ok"' not in out and "stub card, 700 W" in out
+
+
+# ---------------------------------------------------------------------------
+# phases 18 and 19: ids out of range, the examples
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def ids_small(lm_small, monkeypatch):
+    """Phase ids on 400 docs over 64 terms, llama at lm_small's widths,
+    recommender batches of 64 and GIN over 128 nodes and 512 edges."""
+    for name, value in [("IDS_DOCS", 400), ("IDS_TERMS", 64),
+                        ("IDS_BATCH", 64), ("IDS_GIN", (128, 512)),
+                        ("IDS_LM_NEW", 3), ("IDS_GRAD_TOKENS", 2048)]:
+        monkeypatch.setattr(lm_small, name, value)
+    return lm_small
+
+
+def test_chip_smoke_ids_phase_rehearses_on_the_cpu(ids_small, capsys):
+    launches = ids_small.phase_ids(torch.device("cpu"))
+    assert launches["postings_counts"] > 0 and launches["level_step"] > 0
+    assert launches["dot_interaction"] >= 2        # dlrm: bad, then clean
+    out = capsys.readouterr().out
+    assert out.count("[ids] path=cooc_server") == 2
+    assert "good_streams_equal=True" in out
+    assert "[ids] path=embed_grad " in out and "same_bits=True" in out
+    for arch in ("dlrm-rm2", "deepfm", "sasrec"):
+        assert f"[ids] path=serve_fn arch={arch}" in out
+    assert "[ids] path=gin_forward" in out
+
+
+def test_chip_smoke_ids_gate_refuses_a_raising_seed_gather(ids_small,
+                                                          monkeypatch):
+    """The tree before this phase's repair: the seed gather reads column
+    V and raises (here first in the CPU's answer; on the card the lane's
+    answer would be an error or a device assert)."""
+    from repro_torch.core import cooccurrence as C
+    real = C.initial_state
+
+    def unclamped(index, seed_terms, **kw):
+        s = torch.as_tensor(seed_terms).to(torch.int64)
+        index.packed.index_select(1, s.clamp(min=0).reshape(-1))
+        return real(index, seed_terms, **kw)
+
+    monkeypatch.setattr(C, "initial_state", unclamped)
+    with pytest.raises((AssertionError, RuntimeError),
+                       match="out of DATA bounds|ids: gemm"):
+        ids_small.phase_ids(torch.device("cpu"))
+
+
+def test_chip_smoke_examples_phase_rehearses_on_the_cpu(smoke, monkeypatch,
+                                                       capsys):
+    monkeypatch.setattr(smoke, "EXAMPLES", (("torch_quickstart.py",),))
+    smoke.phase_examples(torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "[examples] script=torch_quickstart.py rc=0" in out
+    assert "[examples] scripts=1 ok=True" in out
+    monkeypatch.setattr(smoke, "EXAMPLES", (("torch_quickstart.py",
+                                             "--no-such-flag"),))
+    with pytest.raises(AssertionError, match="examples failed"):
+        smoke.phase_examples(torch.device("cpu"))
+
+
+def test_chip_smoke_ids_only_runs_the_device_ids_and_examples_phases(
+        smoke, monkeypatch, capsys):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(smoke, "phase_device",
+                        lambda: calls.append("device") or "stub card, 700 W")
+    for name in ("phase_ids", "phase_examples", "phase_parity"):
+        monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
+    assert smoke.main(["--ids-only"]) == 0
+    assert calls == ["device", "phase_ids", "phase_examples"]
+    out = capsys.readouterr().out
+    assert '"ok"' not in out and "stub card, 700 W" in out

@@ -141,9 +141,14 @@ def test_the_other_gaps_are_the_side_models_as_roadmap_lists_them():
     assert {"BaseConfig", "CoocConfig"} <= _public(TC)
     assert "cooccur_counts_sharded" in _public(ops)
     roadmap = (ROOT / "ROADMAP.md").read_text()
+    names = sorted(set().union(*SIDE_MODELS.values()))
+    if not names:
+        # no gap left: the roadmap's queue of modules to port says so
+        assert "**Still to port: none.**" in roadmap
+        return
     item = roadmap[roadmap.index("**The seed's side models.**"):]
     item = item[:item.index("### 2.")]
-    for name in sorted(set().union(*SIDE_MODELS.values())):
+    for name in names:
         assert re.search(rf"\b{name}\b", item), name
 
 

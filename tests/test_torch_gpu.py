@@ -810,3 +810,200 @@ def test_restore_shards_onto_the_card(cuda, tmp_path):
         assert isinstance(v, S.ShardedTensor)
         assert all(s.is_cuda for s in v.shards.values())
         assert torch.equal(v.gather("cpu"), tree[k])
+
+
+# -- ids out of range on the card ---------------------------------------------
+
+
+def _slots_np(net):
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+    return np.stack([np.asarray(host(getattr(net, f))).astype(np.int64)
+                     for f in ("src", "dst", "weight", "valid")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [None, "terms"])
+def test_card_answers_a_bad_seed_and_a_later_query(cuda, mesh):
+    """Seeds V and V + 3 beside good ones through the engine on the card,
+    under all four methods (on a term mesh of 3 shards of the card too):
+    no device-side assert, every answer equal to the CPU's, and a later
+    query in the same process equal too."""
+    from repro_torch.core import make_cooc_mesh
+    from repro_torch.serve import CoocEngine
+    v = 29
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(0, v, rng.integers(1, 8)).tolist()
+            for _ in range(200)]
+    kw = {} if mesh is None else dict(mesh=make_cooc_mesh(
+        devices=[cuda] * 3, shard=mesh))
+    card = QueryContext.from_docs(docs, v, device=cuda, **kw)
+    host = QueryContext.from_docs(docs, v, device="cpu")
+    specs = [(1,), (v,), (v + 3,), (4, v), (2,)]
+    for method in ("gemm", "popcount", "pallas", "fused"):
+        plan = dict(depth=2, topk=4, beam=4, method=method)
+        eng = CoocEngine(card, device=cuda, q_batch=8, **plan)
+        want = [construct(host, QuerySpec(seeds=s, **plan)) for s in specs]
+        futs = [eng.submit(s) for s in specs]
+        got = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_slots_np(g.network),
+                                          _slots_np(w.network))
+        later = eng.submit((3,)).result()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(
+            _slots_np(later.network),
+            _slots_np(construct(host, QuerySpec(seeds=(3,), **plan)).network))
+        eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_card_answers_a_bad_token_and_a_later_decode(cuda):
+    """llama at 2 layers of d 128, fp32: a prompt with a token past the
+    vocab among good ones gives the CPU's streams (its own all 0, the
+    others as without it), and a later decode equals the CPU's."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DecodeServer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("llama3-8b"), n_layers=2, d_model=128,
+                  n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
+                  vocab_size=500, attn_q_chunk=0)
+    host = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         dtype=torch.float32)
+    card = T.LM(cfg, device=cuda, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    prompts = [[4, 5, 6], [1, 2, cfg.padded_vocab + 7, 3], [9, 8], [3, 3, 3]]
+    streams = []
+    for model, dev in ((card, cuda), (host, "cpu")):
+        out = []
+        for ps in (prompts, prompts[:1] + prompts[2:]):
+            srv = DecodeServer(cfg, model, slots=2, max_len=16, device=dev)
+            for p in ps:
+                srv.submit(p, max_new_tokens=4)
+            out.append({r.rid: r.out_tokens
+                        for r in srv.run_until_drained()})
+            if dev != "cpu":
+                torch.cuda.synchronize()
+        streams.append(out)
+    assert streams[0] == streams[1]
+    with_bad, without = streams[0]
+    assert with_bad[1] == [0, 0, 0, 0]
+    assert [with_bad[i] for i in (0, 2, 3)] == [without[i] for i in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-rm2", "deepfm", "sasrec"])
+def test_card_answers_a_bad_sparse_id_and_a_later_serve(cuda, arch):
+    """An id past the table (and one that wraps) in one sample each:
+    ``serve_fn`` on the card has NaN exactly where the CPU's has it and
+    equals it elsewhere (DLRM through kernel 4), and a later clean
+    ``serve_fn`` equals the CPU's."""
+    from repro_torch.configs import get_config, replace
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys as R
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = replace(get_config(arch), vocab_per_field=1000, n_items=1000,
+                  seq_len=min(get_config(arch).seq_len, 16))
+    host = R.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = type(host)(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    b = recsys_batch(cfg, 64, 1)
+    if arch == "sasrec":
+        b = {"seq": b["seq"], "candidates": np.random.default_rng(0).integers(
+            0, 1000, (64, 20)).astype(np.int32)}
+        bad = {k: v.copy() for k, v in b.items()}
+        bad["seq"][3, 2], bad["candidates"][5, 1] = 10 ** 6, -1
+    else:
+        b = {k: b[k] for k in ("dense", "sparse_ids") if k in b}
+        bad = {k: v.copy() for k, v in b.items()}
+        bad["sparse_ids"][3, 2], bad["sparse_ids"][5, 0] = 10 ** 6, -1
+    for batch in (bad, b):
+        got = R.serve_fn(cfg, card, R.as_batch(batch, cuda))
+        torch.cuda.synchronize()
+        want = R.serve_fn(cfg, host, R.as_batch(batch, "cpu"))
+        g, w = got.cpu().numpy(), want.numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+    assert np.isnan(R.serve_fn(cfg, card, R.as_batch(bad, cuda)).cpu()
+                    .numpy()).any()
+
+
+@pytest.mark.gpu
+def test_card_ops_carry_nan_as_the_plain_versions_do(cuda):
+    """Kernel 4 on an input with a NaN row, ``scatter_reduce("amax")``
+    (the ragged ``"max"`` bag), ``argmax`` over NaN and GIN over a bad
+    edge: NaN where the CPU puts it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import gnn_synthetic_graph
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((256, 27, 64)).astype(
+        np.float32))
+    x[7, 3] = float("nan")
+    got = ops.dot_interaction(x.to(cuda))
+    torch.cuda.synchronize()
+    want = ref.dot_interaction_ref(x)
+    np.testing.assert_array_equal(torch.isnan(got).cpu().numpy(),
+                                  torch.isnan(want).numpy())
+    assert torch.isnan(want[7]).any() and not torch.isnan(want[8]).any()
+    table = torch.from_numpy(rng.standard_normal((50, 6)).astype(np.float32))
+    flat = torch.tensor([0, 1, 70, 7, 3, -2, 12, 41, 2])
+    seg = torch.tensor([0, 0, 1, 1, 1, 3, 3, 9, 4])
+    for comb in ("sum", "mean", "max"):
+        g = R.embedding_bag_ragged(table.to(cuda), flat.to(cuda),
+                                   seg.to(cuda), 5, combiner=comb).cpu()
+        w = R.embedding_bag_ragged(table, flat, seg, 5, combiner=comb)
+        torch.testing.assert_close(g, w, equal_nan=True)
+    logits = torch.tensor([[1.0, float("nan"), 3.0], [float("nan")] * 3])
+    assert logits.to(cuda).argmax(-1).cpu().tolist() == \
+        logits.argmax(-1).tolist() == [1, 0]
+    cfg = get_config("gin-tu")
+    gr = gnn_synthetic_graph(128, 512, 32, 8, seed=0)
+    gr["edge_src"][5], gr["edge_dst"][9] = 128, 128 + 3
+    host = G.init_gin(cfg, torch.Generator().manual_seed(0), 32, 8,
+                      device="cpu")
+    card = G.GIN(cfg, 32, 8, device=cuda)
+    card.load_state_dict(host.state_dict())
+    hb = {k: torch.from_numpy(v) for k, v in gr.items()}
+    g = G.gin_forward(cfg, card, *(hb[k].to(cuda) for k in
+                                   ("x", "edge_src", "edge_dst"))).cpu()
+    torch.cuda.synchronize()
+    w = G.gin_forward(cfg, host, hb["x"], hb["edge_src"], hb["edge_dst"])
+    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, equal_nan=True)
+    assert torch.isnan(w).any() and not torch.isnan(w).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_take_gradient_on_the_card_is_the_same_in_every_run(cuda, dtype):
+    """2^20 ids over 1,000 rows, two past the table: ``take``'s gradient
+    into the table on the card is the same bit for bit in three runs
+    (the gradients that ``cfg.remat``'s gate compares), and in fp32 equal
+    to the CPU's."""
+    from repro_torch.models import layers as L
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((1000, 64)).astype(
+        np.float32)).to(dt)
+    ids = rng.integers(0, 1000, 1 << 20).astype(np.int32)
+    ids[[5, 9]] = 1000, -1001
+    ids = torch.from_numpy(ids)
+    w = torch.from_numpy(rng.standard_normal((1 << 20, 64)).astype(
+        np.float32)).to(dt)
+
+    def grad(dev):
+        t = table.to(dev).requires_grad_()
+        (L.take(t, ids.to(dev)).nan_to_num(0.0) * w.to(dev)).sum().backward()
+        return t.grad.float().cpu().numpy()
+    runs = [grad(cuda) for _ in range(3)]
+    for g in runs[1:]:
+        np.testing.assert_array_equal(g, runs[0])
+    if dtype == "float32":
+        np.testing.assert_allclose(runs[0], grad("cpu"), rtol=1e-4,
+                                   atol=1e-3)
