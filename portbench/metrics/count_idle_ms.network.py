@@ -1,0 +1,8 @@
+"""Device idle a whole network inside the program's
+cooc.materialize.count spans (the co-occurrence kernel's calls), from the
+profiler's trace (ms)."""
+from portbench import program_spans
+
+
+def read(obs):
+    return program_spans.idle_ms_per_network(obs, "cooc.materialize.count")

@@ -57,6 +57,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.cooccurrence import _resolve_operands, chunked_top_k
 from repro_torch.core.inverted_index import (
     PackedIndex,
@@ -112,28 +113,35 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
     transposed postings; rows past V have all-zero masks.  ``bm`` is a
     multiple of the row tile: one row block, or a group of them.  With
     ``shards`` the block's columns split across the mesh
-    (:func:`~repro_torch.core.distributed.sharded_block_topk`)."""
+    (:func:`~repro_torch.core.distributed.sharded_block_topk`).  While a
+    profile records, the block's three phases are spans of
+    :mod:`repro_torch.tracing`: ``cooc.materialize.masks`` (the filter
+    bitmaps and their unpack), ``.count`` and ``.topk``."""
     v = pidx.vocab_size
-    masks = _row_masks(rows, r0, bm)
-    if scope_mask is not None:
-        masks &= scope_mask[None, :]
+    with tracing.span("cooc.materialize.masks", r0=r0):
+        masks = _row_masks(rows, r0, bm)
+        if scope_mask is not None:
+            masks &= scope_mask[None, :]
+        if shards is None and method == "pallas":
+            x_l = unpack_bitmap(masks, torch.int8).t()          # (D, bm)
     if shards is not None:
         from repro_torch.core.distributed import sharded_block_topk
         own = torch.arange(r0, r0 + bm, device=masks.device)
         return sharded_block_topk(shards, masks, own, operands, k=k,
                                   method=method, mesh=shards.mesh)
-    if method == "pallas":
-        x_l = unpack_bitmap(masks, torch.int8).t()              # (D, bm)
-        counts = ops.cooccur_counts(x_l, operands["x_dense"])[:, :v]
-    else:
-        counts = get_count_method(method).fn(pidx, masks, operands)
-    # self pairs; a pad row's entry is sliced off with its row
-    dev = counts.device
-    terms = torch.arange(r0, r0 + bm, device=dev).clamp(max=v - 1)
-    counts = counts.index_put(
-        (torch.arange(bm, device=dev), terms),
-        torch.tensor(-1, dtype=counts.dtype, device=dev))
-    return chunked_top_k(counts, k)
+    with tracing.span("cooc.materialize.count"):
+        if method == "pallas":
+            counts = ops.cooccur_counts(x_l, operands["x_dense"])[:, :v]
+        else:
+            counts = get_count_method(method).fn(pidx, masks, operands)
+    with tracing.span("cooc.materialize.topk"):
+        # self pairs; a pad row's entry is sliced off with its row
+        dev = counts.device
+        terms = torch.arange(r0, r0 + bm, device=dev).clamp(max=v - 1)
+        counts = counts.index_put(
+            (torch.arange(bm, device=dev), terms),
+            torch.tensor(-1, dtype=counts.dtype, device=dev))
+        return chunked_top_k(counts, k)
 
 
 def _edge_slots(run_w: torch.Tensor, run_i: torch.Tensor):

@@ -35,6 +35,12 @@ the device from the word rows it touches and spilled as a self-contained
 payload, the reference's format; :meth:`QueryContext.all_time_index`
 stacks the cold blocks under the live bitmap.
 
+While a profile records, the ingest path's phases are spans of
+:mod:`repro_torch.tracing`: ``cooc.ingest.lists`` (token lists padded
+into a block), ``cooc.ingest.retire`` (an eviction, its spill included),
+``cooc.spill.encode`` (the payload copied to the host and encoded),
+``cooc.spill.write`` (the store's write) and ``cooc.ingest.scatter``.
+
 **Mesh.**  With ``mesh=`` (:func:`~repro_torch.core.distributed.
 make_cooc_mesh`) the context lives on the mesh's first device and every
 query path runs sharded across the mesh (:mod:`repro_torch.core.
@@ -49,6 +55,7 @@ from typing import Deque, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.inverted_index import (
     PackedIndex,
     dense_operand,
@@ -250,14 +257,15 @@ class QueryContext:
     def _retire_slots(self, slots: np.ndarray) -> None:
         """Spill ``slots`` to the cold store (if any) while their bits are
         still set, then clear them from the index and from every scope."""
-        if self._cold is not None and len(slots):
-            self._spill_block(np.asarray(slots, np.int64))
-        mask = slots_bitmap(slots, self._index.n_words)
-        self._index = retire_docs(self._index, mask)
-        for name in self._scopes:
-            self._scopes[name] = self._scope_host(name) & ~mask
-            self._scope_dev.pop(name, None)
-        self.evicted_docs_total += len(slots)
+        with tracing.span("cooc.ingest.retire"):
+            if self._cold is not None and len(slots):
+                self._spill_block(np.asarray(slots, np.int64))
+            mask = slots_bitmap(slots, self._index.n_words)
+            self._index = retire_docs(self._index, mask)
+            for name in self._scopes:
+                self._scopes[name] = self._scope_host(name) & ~mask
+                self._scope_dev.pop(name, None)
+            self.evicted_docs_total += len(slots)
 
     def retire_oldest_block(self) -> int:
         """Evict the oldest ingest block by hand.  Returns #docs retired;
@@ -307,8 +315,11 @@ class QueryContext:
             packed[:len(src)] |= ((rows[src] >> sh[:, None]) & 1) * weight
         df = popcount32(packed).sum(dim=0, dtype=torch.int32)
         key = f"block-{self._cold_seq:08d}"
-        self._cold[key] = encode_block(ColdBlock(
-            to_uint32(packed), df.cpu().numpy(), n, v))
+        with tracing.span("cooc.spill.encode"):
+            payload = encode_block(ColdBlock(
+                to_uint32(packed), df.cpu().numpy(), n, v))
+        with tracing.span("cooc.spill.write"):
+            self._cold[key] = payload
         self._cold_seq += 1
 
     def all_time_index(self) -> PackedIndex:
@@ -579,9 +590,10 @@ class QueryContext:
             self._ring_tail = start + n_new
         row_slots = np.zeros((valid_np.shape[0],), np.int64)
         row_slots[np.flatnonzero(valid_np)] = slots
-        self._index = ingest_at(self._index, new_doc_terms,
-                                torch.from_numpy(valid_np),
-                                torch.from_numpy(row_slots))
+        with tracing.span("cooc.ingest.scatter"):
+            self._index = ingest_at(self._index, new_doc_terms,
+                                    torch.from_numpy(valid_np),
+                                    torch.from_numpy(row_slots))
         if n_new > 0:
             self._blocks.append(slots)
             if scope is not None:
@@ -628,20 +640,22 @@ class QueryContext:
         sliding-window mode first, as :meth:`set_window` does."""
         if window is not None:
             self.set_window(window)
-        doc_terms = [list(t) for t in doc_terms]
-        over = [(i, len(t)) for i, t in enumerate(doc_terms)
-                if len(t) > max_len]
-        if over and on_long != "truncate":
-            i0, l0 = over[0]
-            raise ValueError(
-                f"{len(over)} document(s) exceed max_len={max_len} (first: "
-                f"doc {i0} with {l0} terms); term ids past max_len would be "
-                f"silently dropped — raise max_len or pass on_long='truncate'")
-        n = len(doc_terms)
-        ids = np.full((n, max_len), -1, np.int32)
-        for i, t in enumerate(doc_terms):
-            t = t[:max_len]
-            ids[i, :len(t)] = t
+        with tracing.span("cooc.ingest.lists"):
+            doc_terms = [list(t) for t in doc_terms]
+            over = [(i, len(t)) for i, t in enumerate(doc_terms)
+                    if len(t) > max_len]
+            if over and on_long != "truncate":
+                i0, l0 = over[0]
+                raise ValueError(
+                    f"{len(over)} document(s) exceed max_len={max_len} "
+                    f"(first: doc {i0} with {l0} terms); term ids past "
+                    f"max_len would be silently dropped — raise max_len or "
+                    f"pass on_long='truncate'")
+            n = len(doc_terms)
+            ids = np.full((n, max_len), -1, np.int32)
+            for i, t in enumerate(doc_terms):
+                t = t[:max_len]
+                ids[i, :len(t)] = t
         return self.ingest(torch.from_numpy(ids),
                            torch.ones((n,), dtype=torch.bool),
                            on_overflow=on_overflow, scope=scope)

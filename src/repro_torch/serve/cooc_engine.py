@@ -10,7 +10,9 @@ once.  The executor of a plan is a plain callable, cached per
 batch gets a scope bitmap (the context's all-ones ``full_mask`` for an
 unscoped plan), so scoped and unscoped plans share one executor.  A step
 synchronises with the device once, when it copies the batch's network to
-the host.
+the host.  While a profile records, :mod:`repro_torch.tracing` spans
+``cooc.engine.submit``, and the step's host work before its levels
+(``cooc.engine.prepare``) and after that copy (``cooc.engine.resolve``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.cooccurrence import bfs_construct_batch
 from repro_torch.core.inverted_index import PackedIndex
 from repro_torch.core.network import CoocNetwork
@@ -208,75 +211,83 @@ class CoocEngine:
                **overrides) -> CoocFuture:
         """Queue a query (a QuerySpec, or seeds completed with the engine
         defaults plus overrides); validation happens here."""
-        if self._closed:
-            raise EngineClosedError(
-                "engine is shut down; create a new CoocEngine over the "
-                "context to serve further queries")
-        if isinstance(query, QuerySpec):
-            spec = dataclasses.replace(query, **overrides) if overrides \
-                else query
-        else:
-            spec = self.make_spec(query, **overrides)
-        if spec.scope is not None and spec.scope not in self.ctx.scope_names():
-            raise KeyError(
-                f"unknown scope {spec.scope!r}; define/tag it on the "
-                f"context before submitting (defined: "
-                f"{list(self.ctx.scope_names())})")
-        req = CoocRequest(self._next_rid, spec, t_submit=time.perf_counter())
-        self._next_rid += 1
-        self.queue.append(req)
-        return CoocFuture(self, req)
+        with tracing.span("cooc.engine.submit"):
+            if self._closed:
+                raise EngineClosedError(
+                    "engine is shut down; create a new CoocEngine over the "
+                    "context to serve further queries")
+            if isinstance(query, QuerySpec):
+                spec = dataclasses.replace(query, **overrides) if overrides \
+                    else query
+            else:
+                spec = self.make_spec(query, **overrides)
+            if spec.scope is not None and \
+                    spec.scope not in self.ctx.scope_names():
+                raise KeyError(
+                    f"unknown scope {spec.scope!r}; define/tag it on the "
+                    f"context before submitting (defined: "
+                    f"{list(self.ctx.scope_names())})")
+            req = CoocRequest(self._next_rid, spec,
+                              t_submit=time.perf_counter())
+            self._next_rid += 1
+            self.queue.append(req)
+            return CoocFuture(self, req)
 
     def step(self) -> int:
         """Serve one micro-batch of the head-of-queue plan; returns the
         number of requests resolved (served, or failed onto futures)."""
         if not self.queue:
             return 0
-        key = self.queue[0].spec.plan_key
-        if key.scope is not None:
-            # a scope dropped between submit and step fails exactly that
-            # plan's requests, never the engine
-            try:
-                scope_mask = self.ctx.scope(key.scope)
-            except KeyError as e:
-                poisoned = [r for r in self.queue if r.spec.plan_key == key]
-                self.queue = [r for r in self.queue
-                              if r.spec.plan_key != key]
-                return self._fail_requests(poisoned, e)
-        else:
-            scope_mask = self.ctx.full_mask()
-        admitted: List[CoocRequest] = []
-        rest: List[CoocRequest] = []
-        for req in self.queue:
-            if req.spec.plan_key == key and len(admitted) < self.q_batch:
-                admitted.append(req)
+        with tracing.span("cooc.engine.prepare"):
+            key = self.queue[0].spec.plan_key
+            if key.scope is not None:
+                # a scope dropped between submit and step fails exactly
+                # that plan's requests, never the engine
+                try:
+                    scope_mask = self.ctx.scope(key.scope)
+                except KeyError as e:
+                    poisoned = [r for r in self.queue
+                                if r.spec.plan_key == key]
+                    self.queue = [r for r in self.queue
+                                  if r.spec.plan_key != key]
+                    return self._fail_requests(poisoned, e)
             else:
-                rest.append(req)
-        self.queue = rest
+                scope_mask = self.ctx.full_mask()
+            admitted: List[CoocRequest] = []
+            rest: List[CoocRequest] = []
+            for req in self.queue:
+                if req.spec.plan_key == key and len(admitted) < self.q_batch:
+                    admitted.append(req)
+                else:
+                    rest.append(req)
+            self.queue = rest
 
-        seeds = np.full((self.q_batch, key.beam), -1, np.int32)
-        for i, req in enumerate(admitted):
-            seeds[i] = req.spec.seed_row()
-        net = self._executor(key)(
-            self.ctx, torch.from_numpy(seeds).to(self.ctx.device),
-            operands=self.ctx.operands(key.method), scope_mask=scope_mask)
+            seeds = np.full((self.q_batch, key.beam), -1, np.int32)
+            for i, req in enumerate(admitted):
+                seeds[i] = req.spec.seed_row()
+            executor = self._executor(key)
+            dev_seeds = torch.from_numpy(seeds).to(self.ctx.device)
+        net = executor(self.ctx, dev_seeds,
+                       operands=self.ctx.operands(key.method),
+                       scope_mask=scope_mask)
         host = torch.stack([net.src, net.dst, net.weight,
                             net.valid.to(torch.int32)]).cpu().numpy()
-        src, dst, w, valid = (a.reshape(self.q_batch, -1) for a in host)
-        t_done = time.perf_counter()
-        occ = len(admitted)
-        self.batch_occupancy.append(occ)
-        self.batches_total += 1
-        for i, req in enumerate(admitted):
-            req.t_done = t_done
-            req.result = QueryResult(
-                network=CoocNetwork(src[i], dst[i], w[i], valid[i] != 0),
-                spec=req.spec, epoch=self.ctx.epoch,
-                latency_ms=req.latency_ms, batch_occupancy=occ)
-            self.latencies_ms.append(req.latency_ms)
-            self.finished.append(req)
-            self.served_total += 1
-        return occ
+        with tracing.span("cooc.engine.resolve"):
+            src, dst, w, valid = (a.reshape(self.q_batch, -1) for a in host)
+            t_done = time.perf_counter()
+            occ = len(admitted)
+            self.batch_occupancy.append(occ)
+            self.batches_total += 1
+            for i, req in enumerate(admitted):
+                req.t_done = t_done
+                req.result = QueryResult(
+                    network=CoocNetwork(src[i], dst[i], w[i], valid[i] != 0),
+                    spec=req.spec, epoch=self.ctx.epoch,
+                    latency_ms=req.latency_ms, batch_occupancy=occ)
+                self.latencies_ms.append(req.latency_ms)
+                self.finished.append(req)
+                self.served_total += 1
+            return occ
 
     def _fail_requests(self, reqs: List[CoocRequest], error: Exception) -> int:
         t_done = time.perf_counter()

@@ -37,6 +37,11 @@ per-lane async lock, so the event loop stays responsive and a lane never
 interleaves a step with an ingest epoch bump.  Each lane's engine lives on
 its context's device; two lanes step from two executor threads, each
 launching its kernels on that device's current stream.
+
+While a profile records, each request's wait from its enqueue to the
+batcher taking (or expiring) it is a ``cooc.server.queue`` span of
+:mod:`repro_torch.tracing`, and each lane step a ``cooc.server.lane_step``
+span: the stamps the step-time model's ``step_ms`` comes from.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Mapping, Optional, Sequence, Union
 
+from repro_torch import tracing
 from repro_torch.core.query import (
     QueryResult,
     QuerySpec,
@@ -144,6 +150,7 @@ class _Pending:
     deadline_ts: float              # absolute monotonic deadline
     t_enqueue: float
     future: "asyncio.Future[ServeResponse]"
+    t_enqueue_ns: int               # the enqueue on the spans' clock
 
 
 class _Lane:
@@ -343,7 +350,8 @@ class CoocServer:
             t.deadline_ms if t.deadline_ms is not None
             else self.cfg.default_deadline_ms)
         p = _Pending(tenant, spec, now + budget / 1e3, now,
-                     asyncio.get_running_loop().create_future())
+                     asyncio.get_running_loop().create_future(),
+                     tracing.now_ns())
         lane.pending.append(p)
         self.metrics.note_queue_depth(len(lane.pending))
         lane.event.set()
@@ -388,6 +396,8 @@ class CoocServer:
         while lane.pending:
             p = lane.pending.popleft()
             if p.deadline_ts <= now:
+                tracing.record("cooc.server.queue", p.t_enqueue_ns,
+                               tracing.now_ns())
                 self._resolve(lane, p, ServeResponse(
                     p.tenant, "deadline_miss", reason="expired_in_queue",
                     latency_ms=(now - p.t_enqueue) * 1e3))
@@ -431,8 +441,10 @@ class CoocServer:
                     pass
                 continue
 
+            taken_ns = tracing.now_ns()
             for p in batch:
                 lane.pending.remove(p)
+                tracing.record("cooc.server.queue", p.t_enqueue_ns, taken_ns)
             self.metrics.note_queue_depth(len(lane.pending))
             lane.inflight_key = exec_key
             lane.inflight_start = time.monotonic()
@@ -444,16 +456,19 @@ class CoocServer:
                 # run on the event loop (cooclint COOC003 enforces this
                 # lexically: no .result() in the async body below).
                 # step_ms is the steps' true time: each step ends in a
-                # blocking copy of its network to the host.
+                # blocking copy of its network to the host.  Its two
+                # stamps are also the lane step's span.
                 futs = []
                 for p in reqs:
                     try:
                         futs.append((p, lane.engine.submit(p.spec)))
                     except Exception as e:           # e.g. unknown scope
                         futs.append((p, e))
-                t0 = time.perf_counter()
+                t0 = tracing.now_ns()
                 lane.engine.run_until_drained()
-                step_ms = (time.perf_counter() - t0) * 1e3
+                t1 = tracing.now_ns()
+                tracing.record("cooc.server.lane_step", t0, t1, n=len(reqs))
+                step_ms = (t1 - t0) / 1e6
                 outs = []
                 for p, fut in futs:
                     if isinstance(fut, Exception):
