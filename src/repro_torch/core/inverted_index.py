@@ -243,6 +243,47 @@ def unpack_bitmap(masks: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return _bits(masks, 2).reshape(b, w * 32).to(dtype)
 
 
+class ForwardIndex(NamedTuple):
+    """The index turned around: doc -> terms in CSR form.  The terms of
+    doc ``d`` are ``terms[ptr[d]:ptr[d + 1]]``, ascending; ``ptr`` has
+    one entry per doc slot of the capacity, plus one."""
+
+    ptr: torch.Tensor        # (capacity + 1,) int64
+    terms: torch.Tensor      # (nnz,) int32, doc-major
+
+    @property
+    def nnz(self) -> int:
+        return self.terms.shape[0]
+
+
+#: word rows of the postings expanded per step of a forward index build:
+#: the step's intermediates are a few bytes per (doc, term) pair of the
+#: rows' documents
+FORWARD_CHUNK_WORDS = 2048
+
+
+def forward_index(index: PackedIndex) -> ForwardIndex:
+    """The (doc, term) pairs of ``index`` as a :class:`ForwardIndex`.
+    Each step expands the nonzero words of ``FORWARD_CHUNK_WORDS`` word
+    rows into their set bits, so no intermediate holds more than those
+    rows' pairs; one sort on an int64 (doc, term) key orders them."""
+    w, v = index.n_words, index.vocab_size
+    shifts = torch.arange(32, dtype=torch.int32, device=index.device)
+    keys = [torch.zeros((0,), dtype=torch.int64, device=index.device)]
+    for w0 in range(0, w, FORWARD_CHUNK_WORDS):
+        blk = index.packed[w0:w0 + FORWARD_CHUNK_WORDS]
+        word, term = blk.nonzero(as_tuple=True)
+        hit, bit = ((blk[word, term][:, None] >> shifts) & 1).nonzero(
+            as_tuple=True)
+        keys.append(((w0 + word[hit]) * 32 + bit) * v + term[hit])
+    key = torch.sort(torch.cat(keys)).values
+    doc = key // v
+    counts = torch.zeros((w * 32,), dtype=torch.int64, device=index.device)
+    counts.index_add_(0, doc, torch.ones_like(doc))
+    ptr = torch.nn.functional.pad(torch.cumsum(counts, 0), (1, 0))
+    return ForwardIndex(ptr, (key - doc * v).to(torch.int32))
+
+
 #: the int8 GEMM on CUDA takes more than 16 rows and a multiple of 8
 #: columns in each operand
 _INT_MM_MIN_ROWS = 17

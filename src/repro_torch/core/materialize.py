@@ -13,12 +13,21 @@ Counts come from ``method=``:
 
 * ``"pallas"`` — the hand-written int8 tensor-core co-occurrence kernel
   (``kernels.ops.cooccur_counts``): one launch per :data:`GROUP`
-  consecutive row blocks, their unpacked masks against the whole dense
-  incidence (``x_dense``), so that one pass over ``x_dense`` serves
-  ``GROUP`` blocks.  The reference streams column tiles through a running
-  top-k merge instead; one exact top-k over each row's counts gives the
-  same values and tie order (the reference's own docstring says the two
-  orders agree);
+  consecutive row blocks.  On one device each group counts over its own
+  documents only: those holding one of its terms (and in the scope), a
+  few percent of a Zipf corpus for all but the head groups.  Its two
+  0/1 operands over those documents, (rows, K) and (V, K), are staged
+  from the context's forward index (doc -> terms, an epoch artifact)
+  with a plan of every group's documents made in one pass over the
+  (doc, term) pairs, whose sizes reach the host once a sweep; the dense
+  incidence is not built.  Where this epoch's ``x_dense`` already exists,
+  a group whose staged operands would outgrow one group's mask unpack
+  reads ``x_dense`` over every document instead, so no second buffer of
+  its size is allocated.  Under a mesh every group reads ``x_dense``.
+  The reference streams column tiles through a running top-k merge
+  instead; one exact top-k over each row's counts gives the same values
+  and tie order (the reference's own docstring says the two orders
+  agree);
 * ``"gemm"``, ``"popcount"``, ``"fused"`` and any registered method — the
   count-method registry, one call per row block.
 
@@ -52,7 +61,7 @@ a mesh counts each candidate tile through the column-split merge.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,8 +69,10 @@ import torch
 from repro_torch import tracing
 from repro_torch.core.cooccurrence import _resolve_operands, chunked_top_k
 from repro_torch.core.inverted_index import (
+    ForwardIndex,
     PackedIndex,
     dense_operand,
+    forward_index,
     from_uint32,
     to_uint32,
     unpack_bitmap,
@@ -87,8 +98,9 @@ from repro_torch.kernels import ops
 
 
 #: row blocks of method "pallas" per co-occurrence launch: one pass over
-#: ``x_dense`` serves GROUP * row_tile terms.  Chosen by measurement among
-#: 1, 2, 4 and 8 on an H100 (chip_smoke.py, phase kernels; PERF.md)
+#: the group's documents serves GROUP * row_tile terms.  Chosen by
+#: measurement among 1, 2, 4 and 8 on an H100, each launch then reading
+#: all of ``x_dense`` (chip_smoke.py, phase kernels; PERF.md)
 GROUP = 4
 
 
@@ -105,6 +117,20 @@ def _row_masks(rows: torch.Tensor, r0: int, bm: int) -> torch.Tensor:
     return masks
 
 
+def _row_top_k(counts: torch.Tensor, r0: int, bm: int, k: int):
+    """The (bm, k) top-k of a block's (bm, V) counts, self pairs
+    excluded (the ``cooc.materialize.topk`` span)."""
+    v = counts.shape[1]
+    with tracing.span("cooc.materialize.topk"):
+        # self pairs; a pad row's entry is sliced off with its row
+        dev = counts.device
+        terms = torch.arange(r0, r0 + bm, device=dev).clamp(max=v - 1)
+        counts = counts.index_put(
+            (torch.arange(bm, device=dev), terms),
+            torch.tensor(-1, dtype=counts.dtype, device=dev))
+        return chunked_top_k(counts, k)
+
+
 def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
                 scope_mask: Optional[torch.Tensor], operands, r0: int, *,
                 k: int, bm: int, method: str, shards=None):
@@ -116,9 +142,10 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
     (:func:`~repro_torch.core.distributed.sharded_block_topk`).  While a
     profile records, the block's three phases are spans of
     :mod:`repro_torch.tracing`: ``cooc.materialize.masks`` (the filter
-    bitmaps and their unpack), ``.count`` and ``.topk``."""
+    bitmaps and their unpack; attribute ``docs``, the documents the count
+    runs over: all of them here), ``.count`` and ``.topk``."""
     v = pidx.vocab_size
-    with tracing.span("cooc.materialize.masks", r0=r0):
+    with tracing.span("cooc.materialize.masks", r0=r0, docs=pidx.n_docs):
         masks = _row_masks(rows, r0, bm)
         if scope_mask is not None:
             masks &= scope_mask[None, :]
@@ -134,14 +161,169 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
             counts = ops.cooccur_counts(x_l, operands["x_dense"])[:, :v]
         else:
             counts = get_count_method(method).fn(pidx, masks, operands)
-    with tracing.span("cooc.materialize.topk"):
-        # self pairs; a pad row's entry is sliced off with its row
-        dev = counts.device
-        terms = torch.arange(r0, r0 + bm, device=dev).clamp(max=v - 1)
-        counts = counts.index_put(
-            (torch.arange(bm, device=dev), terms),
-            torch.tensor(-1, dtype=counts.dtype, device=dev))
-        return chunked_top_k(counts, k)
+    return _row_top_k(counts, r0, bm, k)
+
+
+class _SweepPlan(NamedTuple):
+    """Where each row group's compacted operands come from.  Group ``g``
+    (terms ``[g * step, (g + 1) * step)``) counts over ``n_union[g]``
+    documents: those holding any of its terms (and in the scope), in
+    ascending order, K_pad = ``n_union[g]`` rounded up to 16 of them.
+    ``a_flat[poff[g]:][:n_pairs[g]]`` are the flat positions of the ones
+    of its (rows, K_pad) operand, one a (doc, term) pair of its terms;
+    ``b_flat[boff[g]:][:n_terms[g]]`` those of its (V, K_pad) operand,
+    one a (doc, term) pair of its documents.  The sizes are host arrays,
+    read from the device once."""
+
+    a_flat: torch.Tensor      # int64
+    b_flat: torch.Tensor      # int64
+    n_union: np.ndarray       # (G,) int64
+    n_pairs: np.ndarray
+    n_terms: np.ndarray
+    poff: np.ndarray
+    boff: np.ndarray
+
+
+def _k_pad(n):
+    """A compacted operand's doc axis: 16-byte rows, as TMA needs."""
+    return (n + 15) // 16 * 16
+
+
+def _sweep_plan(fwd: ForwardIndex, scope_mask: Optional[torch.Tensor], *,
+                step: int, n_groups: int) -> _SweepPlan:
+    """Every row group's documents and operand positions, from the
+    forward index: one sort of the (doc, term) pairs by (group, doc),
+    segment sums for the sizes, whose copy to the host is the only
+    synchronise, then each group's documents' terms expanded.  Pairs
+    outside the scope go to a group past the last, never read."""
+    cap = fwd.ptr.shape[0] - 1
+    dev = fwd.terms.device
+    lens = fwd.ptr.diff()
+    doc = torch.repeat_interleave(torch.arange(cap, device=dev), lens,
+                                  output_size=fwd.nnz)
+    term = fwd.terms.to(torch.int64)
+    grp = term // step
+    if scope_mask is not None:
+        inside = (scope_mask[doc >> 5] >> (doc & 31).to(torch.int32)) & 1
+        grp = torch.where(inside.bool(), grp, n_groups)
+    key, order = torch.sort(grp * cap + doc)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    gid = key // cap
+    uid = torch.cumsum(first, 0) - 1          # among all (group, doc)
+    n_union = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev)
+    n_union.index_add_(0, gid, first.to(torch.int64))
+    uoff = torch.cumsum(n_union, 0) - n_union
+    kp = _k_pad(n_union)
+    a_flat = (term[order] - gid * step) * kp[gid] + uid - uoff[gid]
+    n_pairs = torch.zeros_like(n_union).index_add_(0, gid,
+                                                   torch.ones_like(gid))
+    # each (group, doc) once, in uid order: its doc and group
+    udoc = torch.zeros_like(key).index_put_((uid,), key - gid * cap)
+    ugid = torch.zeros_like(key).index_put_((uid,), gid)
+    n_terms = torch.zeros_like(n_union).index_add_(
+        0, gid, torch.where(first, lens[key - gid * cap], 0))
+    sizes = torch.stack([n_union, n_pairs, n_terms])[:, :n_groups].cpu()
+    n_union_h, n_pairs_h, n_terms_h = sizes.numpy()
+    n_u, n_b = int(n_union_h.sum()), int(n_terms_h.sum())
+    udoc, ugid = udoc[:n_u], ugid[:n_u]
+    ulen = lens[udoc]
+    # the (V, K_pad) ones: term t of the i-th document of group g
+    rep = torch.repeat_interleave(torch.stack([
+        fwd.ptr[udoc] - (torch.cumsum(ulen, 0) - ulen),
+        kp[ugid],
+        torch.arange(n_u, device=dev) - uoff[ugid]]), ulen, dim=1,
+        output_size=n_b)
+    entry = rep[0] + torch.arange(n_b, device=dev)
+    b_flat = fwd.terms[entry].to(torch.int64) * rep[1] + rep[2]
+    return _SweepPlan(a_flat, b_flat, n_union_h, n_pairs_h, n_terms_h,
+                      np.cumsum(n_pairs_h) - n_pairs_h,
+                      np.cumsum(n_terms_h) - n_terms_h)
+
+
+def _unpack_bytes(bm: int, n_slots: int) -> int:
+    """Device bytes a row group of ``bm`` terms holds to read ``x_dense``:
+    its (n_slots, bm) int8 masks and one int32 bit intermediate of their
+    unpack (about 1 GB at the CSL scale)."""
+    return 5 * bm * n_slots
+
+
+def _staged_block_topk(plan: _SweepPlan, g: int, abuf: torch.Tensor,
+                       bbuf: torch.Tensor, r0: int, *, k: int, bm: int,
+                       v: int):
+    """:func:`_block_topk` of row group ``g`` over its own documents only.
+    Its operands are staged into the all-zero ``abuf`` and ``bbuf`` from
+    the plan: (bm, K_pad) int8, entry (r, i) = 1 iff the group's i-th
+    document holds term ``r0 + r``, and (V, K_pad) int8, entry (t, i) = 1
+    iff it holds ``t``; the kernel counts over K_pad, and the ones are
+    cleared after it.  A group with no documents launches nothing and
+    emits no edge."""
+    n = int(plan.n_union[g])
+    kp = _k_pad(n)
+    dev = abuf.device
+    with tracing.span("cooc.materialize.masks", r0=r0, docs=n):
+        if n == 0:
+            return (torch.full((bm, k), -1, dtype=torch.int32, device=dev),
+                    torch.zeros((bm, k), dtype=torch.int64, device=dev))
+        fa = plan.a_flat[plan.poff[g]:][:plan.n_pairs[g]]
+        fb = plan.b_flat[plan.boff[g]:][:plan.n_terms[g]]
+        abuf.index_fill_(0, fa, 1)
+        bbuf.index_fill_(0, fb, 1)
+    with tracing.span("cooc.materialize.count"):
+        counts = ops.cooccur_counts(abuf[:bm * kp].view(bm, kp).t(),
+                                    bbuf[:v * kp].view(v, kp).t())
+        abuf.index_fill_(0, fa, 0)
+        bbuf.index_fill_(0, fb, 0)
+    return _row_top_k(counts, r0, bm, k)
+
+
+def _compacted_sweep(pidx: PackedIndex, ctx: Optional[QueryContext],
+                     mask_rows, scope_mask: Optional[torch.Tensor], *,
+                     k: int, bm: int):
+    """The single-device exact ``"pallas"`` sweep: one kernel launch a
+    group of :data:`GROUP` row blocks, each over the group's own
+    documents (:func:`_staged_block_topk`).  The forward index, and the
+    unscoped plan, are the context's epoch artifacts.  Where this epoch's
+    ``x_dense`` already exists, a group whose staged operands would hold
+    more than its unpack does reads ``x_dense`` over every document
+    (:func:`_block_topk`), so the staging buffers stay that small; else
+    every group is staged, in buffers sized by the largest union and
+    freed at the end.  ``mask_rows()`` gives the (V, W) mask rows of such
+    a group.  Returns the (n_rows, k) weights and ids."""
+    v = pidx.vocab_size
+    n_rows = _round_up(v, bm)
+    step = GROUP * bm
+    n_groups = -(-n_rows // step)
+    plan_key = ("materialize", "plan", step)
+    plan = (ctx.cached_artifact(plan_key, version=0)
+            if ctx is not None and scope_mask is None else None)
+    if plan is None:
+        fwd = ctx.forward_index() if ctx is not None else forward_index(pidx)
+        plan = _sweep_plan(fwd, scope_mask, step=step, n_groups=n_groups)
+        if ctx is not None and scope_mask is None:
+            ctx.store_artifact(plan_key, plan, version=0)
+    x_dense = ctx.built_artifact("x_dense") if ctx is not None else None
+    kp = _k_pad(plan.n_union)
+    staged = np.ones(n_groups, dtype=bool)
+    if x_dense is not None:
+        staged = (v + step) * kp <= _unpack_bytes(step, pidx.capacity)
+    k_max = int(kp[staged].max()) if staged.any() else 0
+    abuf = torch.zeros((step * k_max,), dtype=torch.int8, device=pidx.device)
+    bbuf = torch.zeros((v * k_max,), dtype=torch.int8, device=pidx.device)
+    rows = None if staged.all() else mask_rows()
+    ws, ids = [], []
+    for g, r0 in enumerate(range(0, n_rows, step)):
+        bm_g = min(step, n_rows - r0)
+        if staged[g]:
+            w_b, i_b = _staged_block_topk(plan, g, abuf, bbuf, r0, k=k,
+                                          bm=bm_g, v=v)
+        else:
+            w_b, i_b = _block_topk(pidx, rows, scope_mask,
+                                   {"x_dense": x_dense}, r0, k=k, bm=bm_g,
+                                   method="pallas")
+        ws.append(w_b)
+        ids.append(i_b)
+    return torch.cat(ws), torch.cat(ids)
 
 
 def _edge_slots(run_w: torch.Tensor, run_i: torch.Tensor):
@@ -334,10 +516,13 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     broken toward the lower term id, self-pairs and zero counts invalid
     (dst -1, weight 0).  Beyond the cached incidence and this O(V·k)
     result, the peak transient is one row block's (row_tile, V) counts;
-    with ``method="pallas"`` it is one group's: GROUP x (row_tile, V)
-    int32 counts and the group's (GROUP * row_tile, D) int8 masks (at the
-    CSL scale, GROUP = 4 and row_tile = 128: 134 MB and 203 MB, and two
-    int32 bit intermediates of 811 MB each while the masks are unpacked).
+    with ``method="pallas"`` it is one group's GROUP x (row_tile, V) int32
+    counts (134 MB at the CSL scale, GROUP = 4 and row_tile = 128) and the
+    sweep's staging buffers, (GROUP * row_tile + V) int8 bytes a document
+    of the largest group's union: about the size of ``x_dense`` where the
+    head group holds nearly every document, and never more than one
+    group's (GROUP * row_tile, D) int8 masks and an int32 bit intermediate
+    of their unpack (203 MB and 811 MB) where ``x_dense`` is already built.
 
     mode="approx" (``threshold=``, ``num_perm=``, ``sketch_seed=``):
     sketch-pruned materialization (:mod:`repro_torch.core.sketch`).  Per-term
@@ -454,13 +639,16 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
         if hit is not None:
             return hit
 
-    if ctx is not None:
-        # the mask rows are the context's padded transpose: no second
-        # transposed copy of the postings
-        rows = ctx.packed_t_pad()[:v, :w]
-    else:
-        rows = pidx.packed.T
-    if method == "pallas":
+    def mask_rows():
+        # the context's padded transpose: no second transposed copy of
+        # the postings
+        return (ctx.packed_t_pad()[:v, :w] if ctx is not None
+                else pidx.packed.T)
+
+    compacted = method == "pallas" and mesh is None
+    if compacted:
+        operands = {}
+    elif method == "pallas":
         operands = {"x_dense": ctx.x_dense() if ctx is not None
                     else dense_operand(pidx)}
     else:
@@ -479,12 +667,16 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     if mesh is not None:
         from repro_torch.core.distributed import shard_index
         shards = shard_index(ctx if ctx is not None else pidx, mesh)
-    if strategy == "rows":
+    if compacted:
+        run_w, run_i = _compacted_sweep(pidx, ctx, mask_rows, scope_mask,
+                                        k=k, bm=bm)
+    elif strategy == "rows":
         from repro_torch.core.distributed import sharded_row_block_topk
         run_w, run_i = sharded_row_block_topk(
-            shards, rows, scope_mask, operands, k=k, bm=bm, method=method,
-            mesh=mesh)
+            shards, mask_rows(), scope_mask, operands, k=k, bm=bm,
+            method=method, mesh=mesh)
     else:
+        rows = mask_rows()
         ws, ids = [], []
         n_rows = _round_up(v, bm)
         step = GROUP * bm if method == "pallas" else bm

@@ -7,6 +7,8 @@ epoch —
 * ``x_dense()``      the dense int8 incidence (the gemm method's and the
   co-occurrence kernel's operand), stored term-major and built in term
   chunks; ``unpack_count`` counts its builds;
+* ``forward_index()`` the doc -> terms CSR of the postings, from which
+  the exact ``"pallas"`` sweep stages each row group's operands;
 * ``packed_t()``     the transposed postings (V, W);
 * ``packed_t_pad()`` the transposed postings padded to V % 8 == 0 and
   W % 128 == 0 (the reference's fused level-step operand; here the mask
@@ -57,8 +59,10 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.inverted_index import (
+    ForwardIndex,
     PackedIndex,
     dense_operand,
+    forward_index,
     from_uint32,
     grow_capacity,
     grow_vocab,
@@ -434,6 +438,20 @@ class QueryContext:
             self.unpack_count += 1
             return dense_operand(self._index)
         return self._artifact("x_dense", build)
+
+    def built_artifact(self, name: str):
+        """The epoch artifact ``name`` (``"x_dense"``, ...) if this epoch
+        has built it, else None; builds nothing."""
+        ent = self._cache.get(name)
+        return ent[1] if ent is not None and ent[0] == self.epoch else None
+
+    def forward_index(self) -> ForwardIndex:
+        """The doc -> terms CSR of the postings (:func:`~repro_torch.core.
+        inverted_index.forward_index`), built once per epoch: the
+        compacted operands of the exact ``"pallas"`` sweep are staged from
+        it."""
+        return self._artifact("forward_index",
+                              lambda: forward_index(self._index))
 
     def packed_t(self) -> torch.Tensor:
         """Transposed postings (V, W), cached per epoch."""

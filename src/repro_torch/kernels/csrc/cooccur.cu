@@ -5,9 +5,13 @@
 //   C (M, N) int32, row-major.  K, the document axis, is contiguous in both.
 //
 // This is x_l^T @ x_r of the reference with x_l = A^T and x_r = B^T: A is a
-// group of row blocks' unpacked filter masks, B the term-major dense
-// incidence (QueryContext.x_dense's storage).  Counts of 0/1 operands are
-// exact in int32 for any K < 2^31.
+// group of row blocks' 0/1 rows, B the term-major incidence.  On one device
+// materialize stages both over the group's own documents only, those
+// holding one of its terms, so K is the group's union (padded to 16);
+// under a mesh, or beside an x_dense already built, A is the group's
+// unpacked filter masks and B x_dense itself (QueryContext.x_dense's
+// storage), K every document.  Counts of 0/1 operands are exact in int32
+// for any K < 2^31.
 //
 // Replaces the TPU kernel src/repro/kernels/cooccur.py:36
 // (cooccur_gemm_pallas, body _cooccur_kernel), the count source of
@@ -59,9 +63,11 @@
 // unpack_bitmap and dense_operand give K a multiple of 32 and 16-byte
 // aligned rows.  The launcher returns the path it took.
 //
-// What a later redesign would change: a fused per-row top-k (no (M, N)
-// count write), and a persistent grid so that one tile's stores overlap the
-// next tile's loads.
+// What a later redesign would change.  With K cut to a group's union, a
+// tail group's launch is mostly its (M, N) count write: 134 MB at M = 512,
+// N = 65,536, about 40 us of bytes against tens of us of operations.  So
+// first a fused per-row top-k (no (M, N) count write), then a persistent
+// grid so that one tile's stores overlap the next tile's loads.
 #include <cuda.h>            // CUtensorMap and its enums (header only)
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -262,6 +262,46 @@ def test_materialize_methods_agree_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_compacted_network_on_the_card(cuda):
+    """The "pallas" network, each row group counted over its own docs
+    only, equals "gemm"'s on the card, scoped and unscoped; each masks
+    span carries its group's union, computed here from the docs."""
+    from repro_torch import tracing
+    from repro_torch.core import materialize
+    from repro_torch.core.materialize import GROUP
+    n, v = 20_000, 8192
+    step = GROUP * 128
+    docs = synthetic_csl(n, v, seed=9)
+    ctx = QueryContext.from_docs(docs, v, device=cuda)
+    half = np.arange(0, n, 2)
+    ctx.tag_scope("half", half)
+    nets = {}
+    for scope, rows in ((None, range(n)), ("half", half)):
+        held = np.zeros((n, v // step), dtype=bool)
+        for i in rows:
+            held[i, np.asarray(docs[i], dtype=np.int64) // step] = True
+        unions = held.sum(0).tolist()
+        before = ops.LAUNCHES["cooccur_counts"]
+        tracing.clear()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            nets[scope] = materialize(ctx, k=16, method="pallas",
+                                      scope=scope)
+            torch.cuda.synchronize()
+        got = [s[4]["docs"] for s in tracing.spans()
+               if s[0] == "cooc.materialize.masks"]
+        tracing.clear()
+        assert got == unions, scope
+        assert ops.LAUNCHES["cooccur_counts"] == before + sum(
+            u > 0 for u in unions)
+    assert ctx.unpack_count == 0
+    for scope, net in nets.items():
+        want = materialize(ctx, k=16, method="gemm", scope=scope)
+        for a, b in zip(net, want):
+            assert torch.equal(a, b), scope
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c", [64, 256, 4096])
 def test_postings_kernel_on_approx_operands(cuda, c):
     """Kernel 1 on the approximate sweep's operands: 128 postings rows

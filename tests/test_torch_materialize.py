@@ -227,3 +227,130 @@ def test_argument_checks_and_unported_modes():
     # off a mesh the strategy is ignored, as in the reference
     _same_net(materialize(ctx, shard_strategy="rows", use_cache=False),
               materialize(ctx, use_cache=False))
+
+
+def _zipf_docs(n_docs, vocab, seed, hole=None):
+    """Zipf-skewed docs (the CSL corpus model's law): the head row group's
+    terms reach nearly every doc, the tail groups' a few.  ``hole``
+    (lo, hi) drops the terms of that range, so a group has no postings."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / (np.arange(1, vocab + 1) + 2.7) ** 1.15
+    p /= p.sum()
+    docs = [rng.choice(vocab, int(n), p=p).tolist()
+            for n in np.clip(rng.poisson(6, n_docs), 1, None)]
+    if hole is not None:
+        docs = [[t for t in d if not hole[0] <= t < hole[1]] for d in docs]
+    return docs
+
+
+def _unions(docs, vocab, step, in_scope=None):
+    """|U_g|: the docs (in the scope) holding a term of row group g."""
+    held = np.zeros((len(docs), -(-vocab // step)), dtype=bool)
+    for i, d in enumerate(docs):
+        if in_scope is None or i in in_scope:
+            held[i, [t // step for t in d]] = True
+    return held.sum(0)
+
+
+def _count_operands(monkeypatch):
+    """Record each co-occurrence call's (docs, rows): the doc axis it
+    counts over and its row group's rows."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.cooccur_counts
+
+    def counted(x_l, x_r):
+        calls.append(tuple(x_l.shape))
+        return real(x_l, x_r)
+
+    monkeypatch.setattr(ops, "cooccur_counts", counted)
+    return calls
+
+
+def _pad16(n):
+    return -(-n // 16) * 16
+
+
+@pytest.mark.parametrize("scoped", [False, True])
+@pytest.mark.parametrize("hole", [None, (640, 768)])
+def test_compacted_sweep_counts_each_group_over_its_docs(monkeypatch, scoped,
+                                                         hole):
+    """Method "pallas" counts each row group over the docs holding one of
+    its terms (in the scope): the reference's exact network, one launch a
+    group with any doc, none for a group without postings, and no dense
+    incidence built."""
+    from repro_torch.core.materialize import GROUP
+    vocab, row_tile = 1024, 32                   # 8 groups of 128 terms
+    step = GROUP * row_tile
+    docs = _zipf_docs(400, vocab, seed=31, hole=hole)
+    t_ctx, j_ctx = _contexts(docs, vocab)
+    scope, in_scope = None, None
+    if scoped:
+        scope, in_scope = "odd", set(range(1, 400, 2))
+        for ctx in (t_ctx, j_ctx):
+            ctx.tag_scope(scope, np.arange(1, 400, 2))
+    unions = _unions(docs, vocab, step, in_scope)
+    n_scope = 400 if in_scope is None else len(in_scope)
+    assert unions[0] >= 0.95 * n_scope and unions[-1] <= 0.3 * n_scope
+    assert (unions[5] == 0) == (hole is not None)
+    calls = _count_operands(monkeypatch)
+    net = materialize(t_ctx, k=8, method="pallas", row_tile=row_tile,
+                      scope=scope)
+    _same_net(net, j_materialize(j_ctx, k=8, method="gemm", scope=scope))
+    assert calls == [(_pad16(u), step) for u in unions if u]
+    assert t_ctx.unpack_count == 0
+
+
+def test_compacted_sweep_after_an_ingest():
+    """The forward index is an epoch artifact: an ingest rebuilds it, and
+    the next sweep counts the new docs."""
+    docs = _zipf_docs(300, 512, seed=32)
+    t_ctx, j_ctx = _contexts(docs, 512)
+    _same_net(materialize(t_ctx, k=6, method="pallas", row_tile=16),
+              j_materialize(j_ctx, k=6, method="gemm"))
+    fwd = t_ctx.forward_index()
+    assert fwd.nnz == sum(len(set(d)) for d in docs)
+    fresh = [[0, 511, 300], [511, 7], [300, 301, 0, 7]]
+    t_ctx.ingest_docs(fresh)
+    j_ctx.ingest_docs(fresh)
+    _same_net(materialize(t_ctx, k=6, method="pallas", row_tile=16),
+              j_materialize(j_ctx, k=6, method="gemm"))
+    assert t_ctx.forward_index() is not fwd
+    assert t_ctx.forward_index().nnz == fwd.nnz + 9
+    assert t_ctx.unpack_count == 0
+
+
+def test_compacted_sweep_beside_a_built_x_dense(monkeypatch):
+    """Where "gemm" built the epoch's x_dense, a group whose staged
+    operands would pass one group's unpack reads x_dense over every doc
+    and the rest are staged, in one sweep; each masks span carries the
+    docs its group counts over."""
+    import importlib
+    mat = importlib.import_module("repro_torch.core.materialize")
+    from repro_torch import tracing
+    vocab, row_tile = 1024, 32
+    step = mat.GROUP * row_tile
+    docs = _zipf_docs(400, vocab, seed=33)
+    t_ctx, j_ctx = _contexts(docs, vocab)
+    want = j_materialize(j_ctx, k=8, method="gemm")
+    _same_net(materialize(t_ctx, k=8, method="gemm"), want)
+    assert t_ctx.unpack_count == 1
+    kp = [_pad16(u) for u in _unions(docs, vocab, step)]
+    cut = sorted(kp)[len(kp) // 2]
+    monkeypatch.setattr(mat, "_unpack_bytes",
+                        lambda bm, n_slots: (vocab + bm) * cut)
+    calls = _count_operands(monkeypatch)
+    tracing.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        net = materialize(t_ctx, k=8, method="pallas", row_tile=row_tile)
+    _same_net(net, want)
+    cap = t_ctx.index.capacity
+    assert calls == [(k if k <= cut else cap, step) for k in kp]
+    assert {k <= cut for k in kp} == {True, False}
+    docs_attr = [s[4]["docs"] for s in tracing.spans()
+                 if s[0] == "cooc.materialize.masks"]
+    tracing.clear()
+    assert docs_attr == [u if k <= cut else 400 for u, k in
+                         zip(_unions(docs, vocab, step), kp)]
+    assert t_ctx.unpack_count == 1
