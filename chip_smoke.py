@@ -48,7 +48,8 @@ the port's examples.  Phases:
                   engine, and ``CoocIndex(devices=1)`` a one-shard mesh
   4. csl          the CSL-scale serving run, per BFS kernel method
   5. materialize  the whole CSL network, method "pallas" (the kernel, one
-                  launch per GROUP row blocks, on its TMA path) and
+                  launch a chunk of a row group's documents, on its TMA
+                  path) and
                   "gemm" (``torch._int_mm``): identical, 16 rows == the
                   host oracle
   6. approx       the approximate CSL sweep (k 16, threshold 0.5, 128
@@ -465,6 +466,23 @@ def network_row(net, t, k):
     return [(int(d), int(w)) for d, w, o in
             zip(net.dst[sl].cpu().numpy(), net.weight[sl].cpu().numpy(), ok)
             if o]
+
+
+def staged_launches(pidx, step: int) -> int:
+    """Kernel 3 launches of the staged "pallas" sweep over ``pidx``: one a
+    chunk of ``DOC_CHUNK`` documents of each row group's union (the
+    documents holding one of the group's ``step`` terms), none for an
+    empty group."""
+    import torch
+    from repro_torch.core.inverted_index import forward_index
+    from repro_torch.core.materialize import DOC_CHUNK
+    fwd = forward_index(pidx)
+    cap = fwd.ptr.numel() - 1
+    doc = torch.repeat_interleave(torch.arange(cap, device=fwd.ptr.device),
+                                  fwd.ptr.diff())
+    pairs = torch.unique(fwd.terms.to(torch.int64) // step * cap + doc)
+    unions = torch.bincount(pairs // cap)
+    return int((-(-unions // DOC_CHUNK)).sum())
 
 
 def same_network(a, b) -> bool:
@@ -1147,8 +1165,9 @@ def phase_csl(dev):
 @serving
 def phase_materialize(dev, ctx, hidx, launches):
     """The whole CSL network at full width: top-16 for each of the 65,536
-    terms over all 396,209 docs, through the kernel (one launch per GROUP
-    128-term row blocks, each on the TMA path) and through
+    terms over all 396,209 docs, through the kernel (GROUP 128-term row
+    blocks a group, one launch a chunk of each group's documents, each on
+    the TMA path) and through
     ``torch._int_mm`` (method "gemm", one call per row block)."""
     import torch
     from repro_torch.core import global_statistics, materialize
@@ -1164,7 +1183,7 @@ def phase_materialize(dev, ctx, hidx, launches):
         x_dense_strides=xd.stride(), unpack_count=ctx.unpack_count)
 
     n_blocks = -(-v // ROW_TILE)
-    n_groups = -(-v // (GROUP * ROW_TILE))
+    n_launch = staged_launches(ctx.index, GROUP * ROW_TILE)
     nets, secs = {}, {}
     for method in ("pallas", "gemm"):
         torch.cuda.synchronize()
@@ -1180,10 +1199,11 @@ def phase_materialize(dev, ctx, hidx, launches):
         paths = dict(ops.COOCCUR_PATHS)
         extra_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         if method == "pallas":
-            if not counts["cooccur_counts"] == paths["tma"] == n_groups:
+            if not counts["cooccur_counts"] == paths["tma"] == n_launch:
                 raise AssertionError(f"{counts['cooccur_counts']} cooccur "
-                                     f"launches ({paths}) for {n_groups} "
-                                     f"groups of {GROUP} row blocks")
+                                     f"launches ({paths}) for {n_launch} "
+                                     f"chunks of groups of {GROUP} row "
+                                     "blocks")
             launches["cooccur_counts"] = counts["cooccur_counts"]
         if extra_gb > xd.numel() / 2e9:
             # a copy of the 26 GB operand would show here
@@ -1735,6 +1755,7 @@ def phase_stream(dev):
 
     combined = ctx.all_time_index()
     stacked = (combined.n_words, combined.n_docs)
+    n_launch = staged_launches(combined, GROUP * ROW_TILE)
     del combined
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1747,7 +1768,7 @@ def phase_stream(dev):
                 ("postings_counts", "level_step", "cooccur_counts")}
     if not all(launches.values()):
         raise AssertionError(f"a kernel was not launched: {launches}")
-    if launches["cooccur_counts"] != -(-v // (GROUP * ROW_TILE)):
+    if launches["cooccur_counts"] != n_launch:
         raise AssertionError(f"{launches['cooccur_counts']} cooccur launches "
                              "for the all-time sweep")
     say("stream", all_time_words=stacked[0], all_time_slots=stacked[1],

@@ -381,6 +381,9 @@ def ingest_at(index: PackedIndex, new_doc_terms, new_doc_valid,
     ok = (flat_terms >= 0) & (flat_terms < v) & valid.repeat_interleave(m)
     # one sort on an int64 (doc, term) key dedupes repeated terms in a doc
     key = torch.unique(flat_docs[ok] * v + flat_terms[ok])
+    # the block's int64 expansions (8 bytes a padded slot each) are freed
+    # before the bitmap's copy is made beside the original
+    del terms, flat_terms, flat_docs, ok
     d, t = key // v, key % v
     word = d // 32
     bit = torch.ones_like(d) << (d % 32)

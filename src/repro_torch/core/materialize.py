@@ -15,15 +15,14 @@ Counts come from ``method=``:
   (``kernels.ops.cooccur_counts``): one launch per :data:`GROUP`
   consecutive row blocks.  On one device each group counts over its own
   documents only: those holding one of its terms (and in the scope), a
-  few percent of a Zipf corpus for all but the head groups.  Its two
-  0/1 operands over those documents, (rows, K) and (V, K), are staged
-  from the context's forward index (doc -> terms, an epoch artifact)
-  with a plan of every group's documents made in one pass over the
-  (doc, term) pairs, whose sizes reach the host once a sweep; the dense
-  incidence is not built.  Where this epoch's ``x_dense`` already exists,
-  a group whose staged operands would outgrow one group's mask unpack
-  reads ``x_dense`` over every document instead, so no second buffer of
-  its size is allocated.  Under a mesh every group reads ``x_dense``.
+  few percent of a Zipf corpus for all but the head groups.  Those
+  documents are counted in chunks of at most :data:`DOC_CHUNK`, one
+  launch a chunk, and the chunks' int32 counts added.  A chunk's two 0/1
+  operands, (rows, K) and (V, K), are staged from the context's forward
+  index (doc -> terms, an epoch artifact) with a plan of every group's
+  chunks made in one pass over the (doc, term) pairs, whose sizes reach
+  the host once a sweep; the dense incidence is not built.  Under a mesh
+  every group reads ``x_dense``.
   The reference streams column tiles through a running top-k merge
   instead; one exact top-k over each row's counts gives the same values
   and tie order (the reference's own docstring says the two orders
@@ -97,11 +96,25 @@ from repro_torch.core.sketch import (
 from repro_torch.kernels import ops
 
 
-#: row blocks of method "pallas" per co-occurrence launch: one pass over
-#: the group's documents serves GROUP * row_tile terms.  Chosen by
-#: measurement among 1, 2, 4 and 8 on an H100, each launch then reading
-#: all of ``x_dense`` (chip_smoke.py, phase kernels; PERF.md)
+#: row blocks of method "pallas" per row group: one pass over the group's
+#: documents serves GROUP * row_tile terms.  Chosen by measurement among
+#: 1, 2, 4 and 8 on an H100 when each launch read all of ``x_dense``
+#: (chip_smoke.py, phase kernels; PERF.md); not measured again since a
+#: group counts over its own documents only
 GROUP = 4
+
+#: documents of a row group's union counted per co-occurrence launch of
+#: the staged "pallas" sweep.  A larger union is counted in chunks of this
+#: many documents, whose int32 counts are added, so the staging buffers
+#: hold (GROUP * row_tile + V) int8 bytes a document of one chunk, not of
+#: the largest union: 8.7 GB at 65,536 terms, 4.3 GB at 30,454.  A
+#: multiple of 16 (TMA's 16-byte rows).  Chosen by measurement among
+#: 2^17, 2^18 and 2^19 on an H100 (PERF.md): a network of 396,209
+#: documents over 65,536 terms took 0.31-0.32 s at each; one of 7,750,000
+#: over 30,454 took 0.705-0.712 s at 2^17 against 0.691-0.702 s at 2^18
+#: and 0.695-0.701 s at 2^19 (the extra launches' count writes and
+#: adds), for half and a quarter of the staging memory of the others
+DOC_CHUNK = 1 << 17
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -165,22 +178,27 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
 
 
 class _SweepPlan(NamedTuple):
-    """Where each row group's compacted operands come from.  Group ``g``
-    (terms ``[g * step, (g + 1) * step)``) counts over ``n_union[g]``
-    documents: those holding any of its terms (and in the scope), in
-    ascending order, K_pad = ``n_union[g]`` rounded up to 16 of them.
-    ``a_flat[poff[g]:][:n_pairs[g]]`` are the flat positions of the ones
-    of its (rows, K_pad) operand, one a (doc, term) pair of its terms;
-    ``b_flat[boff[g]:][:n_terms[g]]`` those of its (V, K_pad) operand,
-    one a (doc, term) pair of its documents.  The sizes are host arrays,
-    read from the device once."""
+    """Where each chunk of each row group's compacted operands comes from.
+    Group ``g`` (terms ``[g * step, (g + 1) * step)``) counts over
+    ``n_union[g]`` documents: those holding any of its terms (and in the
+    scope), in ascending order, in chunks of :data:`DOC_CHUNK` of them.
+    Its chunks are ``j`` in ``[first[g], first[g + 1])``; chunk ``j``
+    holds ``n_docs[j]`` documents, K_pad = ``n_docs[j]`` rounded up to 16.
+    ``a_flat[aoff[j]:][:n_a[j]]`` are the flat positions of the ones of
+    its (rows, K_pad) operand, one a (doc, term) pair of the group's
+    terms; ``b_flat[boff[j]:][:n_b[j]]`` those of its (V, K_pad) operand,
+    one a (doc, term) pair of its documents.  Positions are int64 and
+    relative to the chunk's operand.  The sizes are host arrays, read
+    from the device once."""
 
     a_flat: torch.Tensor      # int64
     b_flat: torch.Tensor      # int64
     n_union: np.ndarray       # (G,) int64
-    n_pairs: np.ndarray
-    n_terms: np.ndarray
-    poff: np.ndarray
+    first: np.ndarray         # (G + 1,)
+    n_docs: np.ndarray        # (J,) int64, one entry a chunk
+    n_a: np.ndarray
+    n_b: np.ndarray
+    aoff: np.ndarray
     boff: np.ndarray
 
 
@@ -189,13 +207,22 @@ def _k_pad(n):
     return (n + 15) // 16 * 16
 
 
+def _chunk_geometry(i, n_union_of, chunk: int):
+    """For the ``i``-th document of a group's union of ``n_union_of``:
+    its chunk's K_pad and its column in that chunk's operands."""
+    c0 = i - i % chunk
+    return _k_pad(torch.clamp(n_union_of - c0, max=chunk)), i - c0
+
+
 def _sweep_plan(fwd: ForwardIndex, scope_mask: Optional[torch.Tensor], *,
                 step: int, n_groups: int) -> _SweepPlan:
-    """Every row group's documents and operand positions, from the
-    forward index: one sort of the (doc, term) pairs by (group, doc),
-    segment sums for the sizes, whose copy to the host is the only
-    synchronise, then each group's documents' terms expanded.  Pairs
-    outside the scope go to a group past the last, never read."""
+    """Every row group's chunks and operand positions, from the forward
+    index: one sort of the (doc, term) pairs by (group, doc), segment sums
+    for the sizes of each (group, chunk), whose copy to the host is the
+    only synchronise, then each chunk's documents' terms expanded, a
+    chunk at a time.  Pairs outside the scope go to a group past the
+    last, never read."""
+    chunk = DOC_CHUNK
     cap = fwd.ptr.shape[0] - 1
     dev = fwd.terms.device
     lens = fwd.ptr.diff()
@@ -207,6 +234,7 @@ def _sweep_plan(fwd: ForwardIndex, scope_mask: Optional[torch.Tensor], *,
         inside = (scope_mask[doc >> 5] >> (doc & 31).to(torch.int32)) & 1
         grp = torch.where(inside.bool(), grp, n_groups)
     key, order = torch.sort(grp * cap + doc)
+    del doc, grp
     first = torch.ones_like(key, dtype=torch.bool)
     first[1:] = key[1:] != key[:-1]
     gid = key // cap
@@ -214,87 +242,102 @@ def _sweep_plan(fwd: ForwardIndex, scope_mask: Optional[torch.Tensor], *,
     n_union = torch.zeros(n_groups + 1, dtype=torch.int64, device=dev)
     n_union.index_add_(0, gid, first.to(torch.int64))
     uoff = torch.cumsum(n_union, 0) - n_union
-    kp = _k_pad(n_union)
-    a_flat = (term[order] - gid * step) * kp[gid] + uid - uoff[gid]
-    n_pairs = torch.zeros_like(n_union).index_add_(0, gid,
-                                                   torch.ones_like(gid))
-    # each (group, doc) once, in uid order: its doc and group
+    i = uid - uoff[gid]                       # the doc's place in U_g
+    kp, col = _chunk_geometry(i, n_union[gid], chunk)
+    a_flat = (term[order] - gid * step) * kp + col
+    del term, order, kp, col
+    # sizes of each (group, chunk), row-major: the pairs' order
+    per_group = -(-cap // chunk)
+    gc = gid * per_group + i // chunk
+    del i
+    sizes = torch.zeros((3, (n_groups + 1) * per_group), dtype=torch.int64,
+                        device=dev)
+    sizes[0].index_add_(0, gc, first.to(torch.int64))
+    sizes[1].index_add_(0, gc, torch.ones_like(gc))
+    sizes[2].index_add_(0, gc, torch.where(first, lens[key - gid * cap], 0))
+    # each (group, doc) once, in uid order: its doc
     udoc = torch.zeros_like(key).index_put_((uid,), key - gid * cap)
-    ugid = torch.zeros_like(key).index_put_((uid,), gid)
-    n_terms = torch.zeros_like(n_union).index_add_(
-        0, gid, torch.where(first, lens[key - gid * cap], 0))
-    sizes = torch.stack([n_union, n_pairs, n_terms])[:, :n_groups].cpu()
-    n_union_h, n_pairs_h, n_terms_h = sizes.numpy()
-    n_u, n_b = int(n_union_h.sum()), int(n_terms_h.sum())
-    udoc, ugid = udoc[:n_u], ugid[:n_u]
-    ulen = lens[udoc]
-    # the (V, K_pad) ones: term t of the i-th document of group g
-    rep = torch.repeat_interleave(torch.stack([
-        fwd.ptr[udoc] - (torch.cumsum(ulen, 0) - ulen),
-        kp[ugid],
-        torch.arange(n_u, device=dev) - uoff[ugid]]), ulen, dim=1,
-        output_size=n_b)
-    entry = rep[0] + torch.arange(n_b, device=dev)
-    b_flat = fwd.terms[entry].to(torch.int64) * rep[1] + rep[2]
-    return _SweepPlan(a_flat, b_flat, n_union_h, n_pairs_h, n_terms_h,
-                      np.cumsum(n_pairs_h) - n_pairs_h,
-                      np.cumsum(n_terms_h) - n_terms_h)
-
-
-def _unpack_bytes(bm: int, n_slots: int) -> int:
-    """Device bytes a row group of ``bm`` terms holds to read ``x_dense``:
-    its (n_slots, bm) int8 masks and one int32 bit intermediate of their
-    unpack (about 1 GB at the CSL scale)."""
-    return 5 * bm * n_slots
+    del key, first, gid, uid, gc
+    sizes = sizes[:, :n_groups * per_group].cpu().numpy()
+    live = np.flatnonzero(sizes[0])
+    n_docs, n_a, n_b = sizes[:, live]
+    ustart, bstart = np.cumsum(n_docs) - n_docs, np.cumsum(n_b) - n_b
+    # the (V, K_pad) ones, a chunk at a time: term t of the chunk's i-th
+    # document
+    b_flat = torch.empty((int(n_b.sum()),), dtype=torch.int64, device=dev)
+    for u0, nu, b0, nb in zip(ustart.tolist(), n_docs.tolist(),
+                              bstart.tolist(), n_b.tolist()):
+        ud = udoc[u0:u0 + nu]
+        ulen = lens[ud]
+        rep = torch.repeat_interleave(torch.stack([
+            fwd.ptr[ud] - (torch.cumsum(ulen, 0) - ulen),
+            torch.arange(nu, device=dev)]), ulen, dim=1, output_size=nb)
+        b_flat[b0:b0 + nb] = fwd.terms[rep[0] + torch.arange(
+            nb, device=dev)].to(torch.int64) * _k_pad(nu) + rep[1]
+    return _SweepPlan(a_flat, b_flat,
+                      sizes[0].reshape(n_groups, per_group).sum(1),
+                      np.searchsorted(live // per_group,
+                                      np.arange(n_groups + 1)),
+                      n_docs, n_a, n_b, np.cumsum(n_a) - n_a, bstart)
 
 
 def _staged_block_topk(plan: _SweepPlan, g: int, abuf: torch.Tensor,
                        bbuf: torch.Tensor, r0: int, *, k: int, bm: int,
                        v: int):
-    """:func:`_block_topk` of row group ``g`` over its own documents only.
-    Its operands are staged into the all-zero ``abuf`` and ``bbuf`` from
-    the plan: (bm, K_pad) int8, entry (r, i) = 1 iff the group's i-th
-    document holds term ``r0 + r``, and (V, K_pad) int8, entry (t, i) = 1
-    iff it holds ``t``; the kernel counts over K_pad, and the ones are
-    cleared after it.  A group with no documents launches nothing and
-    emits no edge."""
+    """:func:`_block_topk` of row group ``g`` over its own documents only,
+    one kernel launch a chunk of them.  A chunk's operands are staged into
+    the all-zero ``abuf`` and ``bbuf`` from the plan: (bm, K_pad) int8,
+    entry (r, i) = 1 iff the chunk's i-th document holds term ``r0 + r``,
+    and (V, K_pad) int8, entry (t, i) = 1 iff it holds ``t``; the kernel
+    counts over K_pad, its int32 counts are added to the previous
+    chunks', and the ones are cleared after it.  One top-k follows the
+    last chunk.  A group with no documents launches nothing and emits no
+    edge.  Spans: ``cooc.materialize.chunk`` around each chunk (attrs
+    ``r0``, ``c0``, its first document in the union, and ``docs``), the
+    group's one ``cooc.materialize.masks`` (attr ``docs``, the union)
+    around its first chunk's staging, and ``cooc.materialize.count``
+    around each launch, its add and the clearing."""
     n = int(plan.n_union[g])
-    kp = _k_pad(n)
     dev = abuf.device
-    with tracing.span("cooc.materialize.masks", r0=r0, docs=n):
-        if n == 0:
+    if n == 0:
+        with tracing.span("cooc.materialize.masks", r0=r0, docs=0):
             return (torch.full((bm, k), -1, dtype=torch.int32, device=dev),
                     torch.zeros((bm, k), dtype=torch.int64, device=dev))
-        fa = plan.a_flat[plan.poff[g]:][:plan.n_pairs[g]]
-        fb = plan.b_flat[plan.boff[g]:][:plan.n_terms[g]]
-        abuf.index_fill_(0, fa, 1)
-        bbuf.index_fill_(0, fb, 1)
-    with tracing.span("cooc.materialize.count"):
-        counts = ops.cooccur_counts(abuf[:bm * kp].view(bm, kp).t(),
-                                    bbuf[:v * kp].view(v, kp).t())
-        abuf.index_fill_(0, fa, 0)
-        bbuf.index_fill_(0, fb, 0)
+    counts = None
+    c0 = 0
+    for j in range(plan.first[g], plan.first[g + 1]):
+        nd = int(plan.n_docs[j])
+        kp = _k_pad(nd)
+        with tracing.span("cooc.materialize.chunk", r0=r0, c0=c0, docs=nd):
+            with (tracing.span("cooc.materialize.masks", r0=r0, docs=n)
+                  if c0 == 0 else tracing.NO_SPAN):
+                fa = plan.a_flat[plan.aoff[j]:][:plan.n_a[j]]
+                fb = plan.b_flat[plan.boff[j]:][:plan.n_b[j]]
+                abuf.index_fill_(0, fa, 1)
+                bbuf.index_fill_(0, fb, 1)
+            with tracing.span("cooc.materialize.count"):
+                part = ops.cooccur_counts(abuf[:bm * kp].view(bm, kp).t(),
+                                          bbuf[:v * kp].view(v, kp).t())
+                counts = part if counts is None else counts.add_(part)
+                abuf.index_fill_(0, fa, 0)
+                bbuf.index_fill_(0, fb, 0)
+        c0 += nd
     return _row_top_k(counts, r0, bm, k)
 
 
 def _compacted_sweep(pidx: PackedIndex, ctx: Optional[QueryContext],
-                     mask_rows, scope_mask: Optional[torch.Tensor], *,
-                     k: int, bm: int):
-    """The single-device exact ``"pallas"`` sweep: one kernel launch a
-    group of :data:`GROUP` row blocks, each over the group's own
-    documents (:func:`_staged_block_topk`).  The forward index, and the
-    unscoped plan, are the context's epoch artifacts.  Where this epoch's
-    ``x_dense`` already exists, a group whose staged operands would hold
-    more than its unpack does reads ``x_dense`` over every document
-    (:func:`_block_topk`), so the staging buffers stay that small; else
-    every group is staged, in buffers sized by the largest union and
-    freed at the end.  ``mask_rows()`` gives the (V, W) mask rows of such
-    a group.  Returns the (n_rows, k) weights and ids."""
+                     scope_mask: Optional[torch.Tensor], *, k: int, bm: int):
+    """The single-device exact ``"pallas"`` sweep: one top-k a group of
+    :data:`GROUP` row blocks, each counted over the group's own documents
+    in chunks (:func:`_staged_block_topk`).  The forward index, and the
+    unscoped plan, are the context's epoch artifacts.  The staging
+    buffers are sized by the largest chunk and freed at the end.  Returns
+    the (n_rows, k) weights and ids."""
     v = pidx.vocab_size
     n_rows = _round_up(v, bm)
     step = GROUP * bm
     n_groups = -(-n_rows // step)
-    plan_key = ("materialize", "plan", step)
+    plan_key = ("materialize", "plan", step, DOC_CHUNK)
     plan = (ctx.cached_artifact(plan_key, version=0)
             if ctx is not None and scope_mask is None else None)
     if plan is None:
@@ -302,25 +345,13 @@ def _compacted_sweep(pidx: PackedIndex, ctx: Optional[QueryContext],
         plan = _sweep_plan(fwd, scope_mask, step=step, n_groups=n_groups)
         if ctx is not None and scope_mask is None:
             ctx.store_artifact(plan_key, plan, version=0)
-    x_dense = ctx.built_artifact("x_dense") if ctx is not None else None
-    kp = _k_pad(plan.n_union)
-    staged = np.ones(n_groups, dtype=bool)
-    if x_dense is not None:
-        staged = (v + step) * kp <= _unpack_bytes(step, pidx.capacity)
-    k_max = int(kp[staged].max()) if staged.any() else 0
+    k_max = int(_k_pad(plan.n_docs).max()) if len(plan.n_docs) else 0
     abuf = torch.zeros((step * k_max,), dtype=torch.int8, device=pidx.device)
     bbuf = torch.zeros((v * k_max,), dtype=torch.int8, device=pidx.device)
-    rows = None if staged.all() else mask_rows()
     ws, ids = [], []
     for g, r0 in enumerate(range(0, n_rows, step)):
-        bm_g = min(step, n_rows - r0)
-        if staged[g]:
-            w_b, i_b = _staged_block_topk(plan, g, abuf, bbuf, r0, k=k,
-                                          bm=bm_g, v=v)
-        else:
-            w_b, i_b = _block_topk(pidx, rows, scope_mask,
-                                   {"x_dense": x_dense}, r0, k=k, bm=bm_g,
-                                   method="pallas")
+        w_b, i_b = _staged_block_topk(plan, g, abuf, bbuf, r0, k=k,
+                                      bm=min(step, n_rows - r0), v=v)
         ws.append(w_b)
         ids.append(i_b)
     return torch.cat(ws), torch.cat(ids)
@@ -516,13 +547,15 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
     broken toward the lower term id, self-pairs and zero counts invalid
     (dst -1, weight 0).  Beyond the cached incidence and this O(V·k)
     result, the peak transient is one row block's (row_tile, V) counts;
-    with ``method="pallas"`` it is one group's GROUP x (row_tile, V) int32
-    counts (134 MB at the CSL scale, GROUP = 4 and row_tile = 128) and the
+    with ``method="pallas"`` on one device it is one group's GROUP x
+    (row_tile, V) int32 counts twice, the running sum and one chunk's
+    (134 MB each at the CSL scale, GROUP = 4 and row_tile = 128), and the
     sweep's staging buffers, (GROUP * row_tile + V) int8 bytes a document
-    of the largest group's union: about the size of ``x_dense`` where the
-    head group holds nearly every document, and never more than one
-    group's (GROUP * row_tile, D) int8 masks and an int32 bit intermediate
-    of their unpack (203 MB and 811 MB) where ``x_dense`` is already built.
+    of the largest chunk: at most :data:`DOC_CHUNK` documents, whatever
+    the corpus (8.7 GB at 65,536 terms).  The plan the sweep stages from
+    is held per epoch beside the forward index: 8 bytes a (doc, term)
+    pair, and 8 more for each group that the pair's document is in the
+    union of.
 
     mode="approx" (``threshold=``, ``num_perm=``, ``sketch_seed=``):
     sketch-pruned materialization (:mod:`repro_torch.core.sketch`).  Per-term
@@ -668,8 +701,7 @@ def materialize(index, *, k: int = 8, method: str = "gemm",
         from repro_torch.core.distributed import shard_index
         shards = shard_index(ctx if ctx is not None else pidx, mesh)
     if compacted:
-        run_w, run_i = _compacted_sweep(pidx, ctx, mask_rows, scope_mask,
-                                        k=k, bm=bm)
+        run_w, run_i = _compacted_sweep(pidx, ctx, scope_mask, k=k, bm=bm)
     elif strategy == "rows":
         from repro_torch.core.distributed import sharded_row_block_topk
         run_w, run_i = sharded_row_block_topk(

@@ -302,6 +302,49 @@ def test_compacted_network_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_chunked_network_on_the_card(cuda, monkeypatch):
+    """Over MeSH's 30,454 terms (a short last group, ragged column tiles),
+    with head groups of several document chunks: the "pallas" network
+    equals "gemm"'s, its rows equal the plain count's top-k, and each
+    chunk is one launch."""
+    import importlib
+    from repro_torch.core import materialize
+    mat = importlib.import_module("repro_torch.core.materialize")
+    chunk = 1 << 15
+    monkeypatch.setattr(mat, "DOC_CHUNK", chunk)
+    n, v, k = 100_000, 30_454, 16
+    docs = synthetic_csl(n, v, seed=11)
+    ctx = QueryContext.from_docs(docs, v, device=cuda)
+    step = mat.GROUP * 128
+    held = np.zeros((n, -(-v // step)), dtype=bool)
+    for i, d in enumerate(docs):
+        held[i, np.asarray(d, dtype=np.int64) // step] = True
+    unions = held.sum(0)
+    assert unions[0] > 2 * chunk and v % step
+    before = ops.LAUNCHES["cooccur_counts"]
+    net = materialize(ctx, k=k, method="pallas")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cooccur_counts"] - before == sum(
+        -(-int(u) // chunk) for u in unions)
+    assert ctx.unpack_count == 0
+    want = materialize(ctx, k=k, method="gemm")
+    for a, b in zip(net, want):
+        assert torch.equal(a, b)
+    rows = torch.tensor([0, 1, 2, 511, 512, 5000, v - 1], device=cuda)
+    x = ctx.x_dense()[:, :v]
+    counts = ref.cooccur_counts_ref(x[:, rows].contiguous(), x).cpu()
+    counts[torch.arange(len(rows)), rows.cpu()] = -1
+    order = torch.sort(-counts, dim=1, stable=True).indices[:, :k]
+    top = torch.gather(counts, 1, order)
+    slots = (rows.cpu()[:, None] * k + torch.arange(k)).reshape(-1)
+    got_w = net.weight.cpu()[slots].reshape(-1, k)
+    got_d = net.dst.cpu()[slots].reshape(-1, k)
+    assert torch.equal(got_w, torch.where(top > 0, top, 0).to(got_w.dtype))
+    assert torch.equal(got_d, torch.where(top > 0, order, -1).to(
+        got_d.dtype))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c", [64, 256, 4096])
 def test_postings_kernel_on_approx_operands(cuda, c):
     """Kernel 1 on the approximate sweep's operands: 128 postings rows

@@ -321,10 +321,10 @@ def test_compacted_sweep_after_an_ingest():
 
 
 def test_compacted_sweep_beside_a_built_x_dense(monkeypatch):
-    """Where "gemm" built the epoch's x_dense, a group whose staged
-    operands would pass one group's unpack reads x_dense over every doc
-    and the rest are staged, in one sweep; each masks span carries the
-    docs its group counts over."""
+    """Where "gemm" built the epoch's x_dense, "pallas" still stages every
+    group over its own docs (its staging is bounded by a chunk, so the
+    dense incidence is not read); each masks span carries the docs its
+    group counts over."""
     import importlib
     mat = importlib.import_module("repro_torch.core.materialize")
     from repro_torch import tracing
@@ -335,22 +335,170 @@ def test_compacted_sweep_beside_a_built_x_dense(monkeypatch):
     want = j_materialize(j_ctx, k=8, method="gemm")
     _same_net(materialize(t_ctx, k=8, method="gemm"), want)
     assert t_ctx.unpack_count == 1
-    kp = [_pad16(u) for u in _unions(docs, vocab, step)]
-    cut = sorted(kp)[len(kp) // 2]
-    monkeypatch.setattr(mat, "_unpack_bytes",
-                        lambda bm, n_slots: (vocab + bm) * cut)
+    unions = _unions(docs, vocab, step)
     calls = _count_operands(monkeypatch)
     tracing.clear()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         net = materialize(t_ctx, k=8, method="pallas", row_tile=row_tile)
     _same_net(net, want)
-    cap = t_ctx.index.capacity
-    assert calls == [(k if k <= cut else cap, step) for k in kp]
-    assert {k <= cut for k in kp} == {True, False}
+    assert calls == [(_pad16(u), step) for u in unions if u]
     docs_attr = [s[4]["docs"] for s in tracing.spans()
                  if s[0] == "cooc.materialize.masks"]
     tracing.clear()
-    assert docs_attr == [u if k <= cut else 400 for u, k in
-                         zip(_unions(docs, vocab, step), kp)]
+    assert docs_attr == unions.tolist()
     assert t_ctx.unpack_count == 1
+
+
+def _chunks(u, chunk):
+    """The doc counts of the chunks a union of ``u`` docs is counted in."""
+    return [chunk] * (u // chunk) + ([u % chunk] if u % chunk else [])
+
+
+def _traced_pallas(t_ctx, monkeypatch, **kw):
+    """The "pallas" network of ``t_ctx``, each co-occurrence call's
+    (docs, rows), and the (name, attrs) of its masks and chunk spans."""
+    from repro_torch import tracing
+    calls = _count_operands(monkeypatch)
+    tracing.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        net = materialize(t_ctx, method="pallas", use_cache=False, **kw)
+    spans = [(s[0], s[4]) for s in tracing.spans()
+             if s[0] in ("cooc.materialize.masks", "cooc.materialize.chunk")]
+    tracing.clear()
+    return net, calls, spans
+
+
+def _check_chunks(calls, spans, unions, step, chunk, n_rows):
+    """Every launch counts at most ``chunk`` docs; each group's chunk
+    spans run over its union in order, one masks span a group."""
+    masks = [a for n, a in spans if n == "cooc.materialize.masks"]
+    assert [a["docs"] for a in masks] == list(unions)
+    by_group = {}
+    for n, a in spans:
+        if n == "cooc.materialize.chunk":
+            by_group.setdefault(a["r0"], []).append((a["c0"], a["docs"]))
+    want_calls = []
+    for g, u in enumerate(unions):
+        sizes = _chunks(int(u), chunk)
+        got = by_group.get(g * step, [])
+        assert [d for _, d in got] == sizes
+        assert [c for c, _ in got] == list(np.cumsum([0] + sizes[:-1]))
+        want_calls += [(_pad16(d), min(step, n_rows - g * step))
+                       for d in sizes]
+    assert calls == want_calls
+    assert all(k <= chunk for k, _ in calls)
+
+
+@pytest.mark.parametrize("case", ["multiple", "one_left", "short_last",
+                                  "short_rows", "scoped"])
+def test_chunked_sweep_matches_reference(monkeypatch, case):
+    """Unions past DOC_CHUNK are counted in chunks whose counts add up to
+    the reference's network bit for bit: a head union of exactly three
+    chunks, one of two chunks and one doc, a vocabulary whose last group
+    is short in terms (1,000 at row tile 32) or in rows (row tile 40),
+    and a scope."""
+    import importlib
+    mat = importlib.import_module("repro_torch.core.materialize")
+    chunk = 32
+    monkeypatch.setattr(mat, "DOC_CHUNK", chunk)
+    vocab, row_tile, n_docs = 512, 32, 96
+    if case == "one_left":
+        n_docs = 97
+    if case in ("short_last", "short_rows"):
+        vocab, n_docs = 1000, 150
+    if case == "short_rows":
+        row_tile = 40
+    if case == "scoped":
+        n_docs = 200
+    docs = _zipf_docs(n_docs, vocab, seed=34)
+    docs = [[0] + d for d in docs]        # the head group holds every doc
+    t_ctx, j_ctx = _contexts(docs, vocab)
+    scope, in_scope = None, None
+    if case == "scoped":
+        in_scope = set(range(0, n_docs, 3)) | {1, 2}
+        scope = "some"
+        for ctx in (t_ctx, j_ctx):
+            ctx.tag_scope(scope, np.asarray(sorted(in_scope)))
+    step = mat.GROUP * row_tile
+    n_rows = -(-vocab // row_tile) * row_tile
+    unions = _unions(docs, n_rows, step, in_scope)
+    assert unions[0] == (n_docs if in_scope is None else len(in_scope))
+    assert unions[0] > 2 * chunk
+    net, calls, spans = _traced_pallas(t_ctx, monkeypatch, k=8,
+                                       row_tile=row_tile, scope=scope)
+    _same_net(net, j_materialize(j_ctx, k=8, method="gemm", scope=scope))
+    _check_chunks(calls, spans, unions, step, chunk, n_rows)
+    if case == "multiple":
+        assert unions[0] == 3 * chunk
+    if case == "one_left":
+        assert unions[0] == 3 * chunk + 1
+    if case == "short_last":
+        assert vocab % step and not n_rows % step
+    if case == "short_rows":
+        assert n_rows % step
+    assert t_ctx.unpack_count == 0
+
+
+def test_chunked_sweep_after_an_ingest(monkeypatch):
+    """An ingest moves the epoch: the next chunked sweep's plan counts
+    the new docs."""
+    import importlib
+    mat = importlib.import_module("repro_torch.core.materialize")
+    monkeypatch.setattr(mat, "DOC_CHUNK", 32)
+    docs = _zipf_docs(100, 512, seed=35)
+    t_ctx, j_ctx = _contexts(docs, 512)
+    _same_net(materialize(t_ctx, k=6, method="pallas", row_tile=16),
+              j_materialize(j_ctx, k=6, method="gemm"))
+    fresh = _zipf_docs(28, 512, seed=36)
+    t_ctx.ingest_docs(fresh)
+    j_ctx.ingest_docs(fresh)
+    unions = _unions(docs + fresh, 512, mat.GROUP * 16)
+    net, calls, spans = _traced_pallas(t_ctx, monkeypatch, k=6, row_tile=16)
+    _same_net(net, j_materialize(j_ctx, k=6, method="gemm"))
+    _check_chunks(calls, spans, unions, mat.GROUP * 16, 32, 512)
+    assert unions[0] > 64
+
+
+def test_chunked_sweep_over_a_window_that_evicted(monkeypatch):
+    """A window that has evicted blocks reuses their slots: the forward
+    index and the plan are rebuilt from the ring, and the chunked network
+    is the reference's."""
+    import importlib
+    mat = importlib.import_module("repro_torch.core.materialize")
+    monkeypatch.setattr(mat, "DOC_CHUNK", 16)
+    vocab = 300
+    t_ctx = T.QueryContext.from_docs([], vocab, device="cpu", window=96)
+    j_ctx = J.QueryContext.from_docs([], vocab, window=96)
+    blocks = [_zipf_docs(40, vocab, seed=40 + i) for i in range(4)]
+    for i, block in enumerate(blocks):
+        for ctx in (t_ctx, j_ctx):
+            ctx.ingest_docs(block)
+        if i == 1:
+            _same_net(materialize(t_ctx, k=5, method="pallas", row_tile=16),
+                      j_materialize(j_ctx, k=5, method="gemm"))
+    assert t_ctx.evicted_docs_total == j_ctx.evicted_docs_total == 80
+    live = [d for b in blocks[2:] for d in b]
+    step = mat.GROUP * 16
+    unions = _unions(live, 304, step)
+    net, calls, spans = _traced_pallas(t_ctx, monkeypatch, k=5, row_tile=16)
+    _same_net(net, j_materialize(j_ctx, k=5, method="gemm"))
+    _check_chunks(calls, spans, unions, step, 16, 304)
+    assert unions[0] > 32
+
+
+def test_plan_positions_past_int32():
+    """A chunk's operand positions are int64 and exact past 2^31: the
+    plan's arithmetic at a union of 2^34 docs, with no operand built."""
+    from repro_torch.core.materialize import _chunk_geometry, _k_pad
+    chunk = 1 << 17
+    n_union = torch.tensor([1 << 34, (1 << 34) + 5, (1 << 34) + 5])
+    i = torch.tensor([(1 << 33) + 7, (1 << 34) + 4, 3 * chunk + 1])
+    kp, col = _chunk_geometry(i, n_union, chunk)
+    assert kp.tolist() == [chunk, _k_pad(5), chunk]
+    assert col.tolist() == [7, 4, 1]
+    # the last one of a (65,535 x K_pad) operand: past 2^31
+    pos = torch.tensor([65535]) * kp[:1] + (chunk - 1)
+    assert pos.dtype == torch.int64 and pos.item() == 65536 * chunk - 1
+    assert pos.item() > 2 ** 32

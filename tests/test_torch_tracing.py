@@ -30,10 +30,10 @@ from repro_torch.serve import (  # noqa: E402
 #: every span the program opens; each is read by one benchmark metric
 SPANS = {
     "cooc.engine.submit", "cooc.engine.prepare", "cooc.engine.resolve",
-    "cooc.materialize.masks", "cooc.materialize.count",
-    "cooc.materialize.topk", "cooc.server.queue", "cooc.server.lane_step",
-    "cooc.ingest.lists", "cooc.ingest.retire", "cooc.spill.encode",
-    "cooc.spill.write", "cooc.ingest.scatter",
+    "cooc.materialize.masks", "cooc.materialize.chunk",
+    "cooc.materialize.count", "cooc.materialize.topk", "cooc.server.queue",
+    "cooc.server.lane_step", "cooc.ingest.lists", "cooc.ingest.retire",
+    "cooc.spill.encode", "cooc.spill.write", "cooc.ingest.scatter",
 }
 
 DOCS = [[0, 1, 2], [1, 2, 3], [2, 3, 4, 5], [0, 5, 6], [6, 7], [1, 7, 3]]
