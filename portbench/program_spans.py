@@ -3,7 +3,7 @@
 
 The program records its phases (``repro_torch.tracing``) while a profile
 records, stamped on the profiler's own clock, so the traced window is the
-trace's ``[lo, hi)`` and every span is clipped to it.  Two readings:
+trace's ``[lo, hi)`` and every span is clipped to it.  Three readings:
 
 * host time: the mean, or the nearest-rank 95th percentile, of a span's
   duration, or its sum over the window per engine step;
@@ -11,10 +11,17 @@ trace's ``[lo, hi)`` and every span is clipped to it.  Two readings:
   innermost program span that covers its middle, the rule
   :meth:`portbench.trace.Trace.gaps` applies to the harness's spans.
 
+* device time launched inside a span: the device time of every
+  operation whose launch call (the host event with its correlation id)
+  started inside a span of the name, wherever on the device's timeline
+  it ran (:meth:`portbench.trace.Trace.launched_s`).  It reads the span,
+  not kernel names, so it holds whatever the span's code launches.
+
 Every reading is None where it cannot be trusted or has nothing to read:
 a program that keeps no spans, a ring that overflowed (spans of the
-window may be lost), no span of the name in the window, or (for idle) a
-trace with no device operation.
+window may be lost), no span of the name in the window, or (for idle and
+launched device time) a trace with no device operation, or none tied to
+its launch.
 """
 from __future__ import annotations
 
@@ -122,3 +129,17 @@ def idle_ms_per_network(obs: Mapping, name: str) -> Optional[float]:
             not any(n == name for n, _, _ in spans):
         return None
     return 1e3 * idle_by_span(trace, spans).get(name, 0.0) / nets
+
+
+def launched_ms_per_network(obs: Mapping, name: str) -> Optional[float]:
+    """Device time of the operations launched inside the spans ``name``
+    over the networks built in the window, ms."""
+    trace, nets = obs.get("trace"), obs.get("networks")
+    spans = window_spans(obs)
+    if not spans or not nets:
+        return None
+    mine = [(a, b) for n, a, b in spans if n == name]
+    if not mine:
+        return None
+    s = trace.launched_s(mine)
+    return None if not s else 1e3 * s / nets

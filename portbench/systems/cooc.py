@@ -565,36 +565,35 @@ def _network(cfg, traffic, cell, seed, seconds, trace, device, t_start):
     v = int(cfg["vocab_size"])
     k, method = int(traffic["k"]), traffic["method"]
     docs = corpus_docs(cfg, seed, device)
+    # the rows the check reads, and their flat slots (term * k + rank):
+    # of each network only these outlive the iteration that built it, so
+    # the device's peak holds no network the harness kept
+    terms = network_terms(corpus.doc_freq(docs, v),
+                          int(cell["check"]["sample"]), seed)
+    sl = (torch.as_tensor(terms, device=device)[:, None] * k
+          + torch.arange(k, device=device)).reshape(-1)
     ctx = _context(cfg, docs, device)
     # use_cache=False: the context would hand back its cached network
     materialize(ctx, k=k, method=method, use_cache=False)
     _sync(device)
     setup_s = time.monotonic() - t_start
-    nets = []
+    got = []
     before = _launches()
     with Recorder(trace) as rec:
         with rec.window():
             t0 = time.monotonic()
             while time.monotonic() - t0 < seconds:
                 with rec.span("materialize"):
-                    nets.append(materialize(ctx, k=k, method=method,
-                                            use_cache=False))
+                    net = materialize(ctx, k=k, method=method,
+                                      use_cache=False)
                     _sync(device)
+                got.append(tuple(x[sl].cpu().numpy().reshape(-1, k)
+                                 for x in (net.dst, net.weight, net.src)))
+                del net
             t_last = time.monotonic()
     launches = _delta(before)
     peak = _peak_bytes(device)
     del ctx
-    df = corpus.doc_freq(docs, v)
-    terms = network_terms(df, int(cell["check"]["sample"]), seed)
-    rows = torch.as_tensor(terms, device=device)
-    got = []
-    for net in nets:
-        sl = (rows[:, None] * k + torch.arange(k, device=device)).reshape(-1)
-        got.append((net.dst[sl].reshape(-1, k).cpu().numpy(),
-                    net.weight[sl].reshape(-1, k).cpu().numpy(),
-                    net.src[sl].reshape(-1, k).cpu().numpy()))
-    n_nets = len(nets)
-    del nets
     _free(device)
     index = reference.Index(docs, v)
     dst, wt = reference.network_rows(index, terms, k)
@@ -603,6 +602,7 @@ def _network(cfg, traffic, cell, seed, seconds, trace, device, t_start):
         bad = ((g_dst != dst) | (g_wt != wt)).any(1) | \
             (g_src != terms[:, None]).any(1)
         wrong += int(bad.sum())
+    n_nets = len(got)
     obs = {"networks": n_nets, "launches": launches, "trace": rec.trace}
     if trace:
         obs["network_work"] = reference.network_work(

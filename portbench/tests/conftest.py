@@ -101,3 +101,22 @@ def tiny(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     shrink(base)
     return tmp_path, base
+
+
+def copies_of_one_network(orig, alter=None):
+    """A ``materialize`` that builds the set-up's network and hands out
+    copies of it after that, so that a window on a loaded CPU holds many;
+    ``alter(i, net)`` may change the i-th network handed out (0: the
+    set-up's)."""
+    built, calls = [], 0
+
+    def materialize(*a, **kw):
+        nonlocal calls
+        if not built:
+            built.append(orig(*a, **kw))
+        net = built[0]._replace(**{f: t.clone() for f, t
+                                   in built[0]._asdict().items()})
+        calls += 1
+        return alter(calls - 1, net) if alter else net
+
+    return materialize

@@ -9,7 +9,7 @@ import time
 import numpy as np
 import pytest
 
-from conftest import SEED
+from conftest import SEED, copies_of_one_network
 from portbench import control, harness
 
 
@@ -58,6 +58,26 @@ def test_answer_altered_where_produced_network(tiny, monkeypatch):
     line = _run(tiny, "csl-network", 0.5)
     assert line["correct"] is False
     assert line["checks"]["rows_wrong"]["value"] > 0
+
+
+def test_answer_altered_in_a_later_network(tiny, monkeypatch):
+    """Only the window's second network is altered: the check reads the
+    sampled rows of every network built, not of the first alone."""
+    import repro_torch.core as core
+
+    def second(i, net):
+        if i != 2:
+            return net
+        return net._replace(weight=net.weight + net.valid.to(net.weight.dtype))
+
+    monkeypatch.setattr(core, "materialize",
+                        copies_of_one_network(core.materialize, second))
+    line = _run(tiny, "csl-network", 0.3)
+    assert line["attempted"] >= 2
+    assert line["correct"] is False
+    wrong = line["checks"]["rows_wrong"]["value"]
+    per_net = line["checks"]["rows_checked"]["value"] // line["attempted"]
+    assert 0 < wrong <= per_net
 
 
 def test_half_of_the_batch_left_out(tiny, monkeypatch):

@@ -41,3 +41,32 @@ def test_small_cells_on_the_card(tiny, card, cell, trace):
     assert line["device"]["platform"] == "gpu"
     if trace:
         assert line["device"]["busy_s"] > 0
+
+
+@pytest.mark.gpu
+def test_network_peak_does_not_grow_with_the_window(tiny, card):
+    """A ``csl-network``-shaped cell on the card (CSL's 65,536 terms over
+    50,000 documents, the hand-written sweep): a 1 s window and a 4 s
+    window, which build several times as many networks, read the same
+    ``device_peak_gb`` within 1 MB, and both are correct.  The peak is the
+    program's: the harness keeps no network past its iteration."""
+    root, base = tiny
+    p = base / "configs" / "cooccur-csl.json"
+    c = json.loads(p.read_text())
+    c.update(n_docs=50_000, vocab_size=65_536)
+    p.write_text(json.dumps(c))
+    lines = []
+    torch.cuda.init()       # the allocator's statistics exist from here
+    # the first run builds the kernels; the two after it are compared
+    for seconds in (0.5, 1.0, 4.0):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(card)
+        line = harness.run("csl-network", seed=SEED, seconds=seconds,
+                           trace=False, t_start=time.monotonic(), root=root,
+                           base=base, device=card)
+        assert line["correct"] is True, line["checks"]
+        lines.append(line)
+    short, long = lines[1:]
+    assert long["attempted"] > 2 * short["attempted"]
+    assert abs(long["device"]["memory_peak_bytes"]
+               - short["device"]["memory_peak_bytes"]) <= 10 ** 6

@@ -20,7 +20,7 @@ from repro_torch import tracing
 
 CELL = "medline-network"
 NEW = ["network_roofline.medline", "launches_per_network.medline",
-       "chunk_idle_ms.medline", "idle_share.medline"]
+       "chunk_idle_ms.medline", "idle_share.medline", "topk_ms.medline"]
 #: the shrunk configuration: a vocabulary that is not a multiple of 128,
 #: so the last row group is short and the column tiles ragged
 DOCS, VOCAB = 16000, 1000
@@ -150,6 +150,8 @@ def test_the_readers_on_a_synthetic_trace(monkeypatch):
     assert read["chunk_idle_ms.medline"] == pytest.approx(100 / 2e6)
     assert read["idle_share.medline"] == pytest.approx(80.0)
     assert read["network_roofline.medline"] > 0
+    # a trace that ties no device operation to its launch
+    assert read["topk_ms.medline"] is None
     # a program without chunk spans: the chunk reader reads nothing
     monkeypatch.setattr(program_spans, "_ring", lambda: (
         [("cooc.materialize.masks", 90, 250, 1, {"docs": 5})], 0))

@@ -96,6 +96,35 @@ def test_idle_readers_per_network(monkeypatch):
         is None
 
 
+@pytest.mark.parametrize("name", ["topk_ms.network", "topk_ms.medline"])
+def test_device_time_goes_to_the_span_that_launched_it(monkeypatch, name):
+    """A top-k span [100, 200): an operation launched inside it and run
+    after it counts; one run inside it but launched before it does not,
+    nor one launched after it.  A launch at the span's start counts, one
+    at its end does not."""
+    ops = [("early", 120, 180, 1),       # launched at 50
+           ("late", 300, 400, 2),        # launched at 150
+           ("later", 400, 450, 3),       # launched at 100
+           ("after", 500, 600, 4),       # launched at 200
+           ("nothing", 700, 710, 0)]     # no launch recorded
+    launches = [(1, 50), (2, 150), (3, 100), (4, 200), (5, 160)]
+    trace = Trace(ops, [(WINDOW, 0, 1000)], launches)
+    _ring(monkeypatch, [("cooc.materialize.topk", 100, 200),
+                        ("cooc.materialize.count", 40, 60)])
+    obs = {"trace": trace, "networks": 2}
+    read = harness.reader(ROOT / "portbench", name)
+    assert read(obs) == pytest.approx((100 + 50) / 2e6)
+    assert trace.launched_s([(40, 60)]) == pytest.approx(60 / 1e9)
+    # no launch tied to a device operation, a ring that overflowed, or
+    # no top-k span in the window: nothing to read
+    bare = Trace([o[:3] for o in ops], [(WINDOW, 0, 1000)], launches)
+    assert read({"trace": bare, "networks": 2}) is None
+    _ring(monkeypatch, [("cooc.materialize.topk", 100, 200)], dropped=1)
+    assert read(obs) is None
+    _ring(monkeypatch, [("cooc.materialize.count", 100, 200)])
+    assert read(obs) is None
+
+
 def test_spans_are_clipped_to_the_window(monkeypatch):
     trace = _trace([(0, 1000)], lo=1000, hi=2000)
     _ring(monkeypatch, [("cooc.engine.prepare", 900, 1100),

@@ -9,11 +9,18 @@ that overlap count once; the window is the harness's own
 ``portbench.window`` span, and every harness span (``portbench.*``,
 recorded with ``torch.profiler.record_function``) labels the idle gaps it
 covers.
+
+Each device operation keeps its correlation id, and the host call that
+launched it (``cudaLaunchKernel``, ``cudaMemcpyAsync``, ...: the runtime
+or driver event that carries the same id) keeps its start on the host's
+clock, so an operation can be charged to the host span it was launched
+in, however late the device runs it.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,18 +59,35 @@ def _clip(iv, lo, hi):
 
 
 class Trace:
-    """What one traced window recorded: device operations, harness spans."""
+    """What one traced window recorded: device operations (``(name,
+    start_ns, end_ns)``, or with a fourth element, the correlation id of
+    the host call that launched it), harness spans, and the host's launch
+    calls (``(correlation id, start_ns)``)."""
 
-    def __init__(self, ops: List[Tuple[str, int, int]],
-                 spans: List[Tuple[str, int, int]]):
+    def __init__(self, ops: List[tuple], spans: List[Tuple[str, int, int]],
+                 launches: Sequence[Tuple[int, int]] = ()):
         win = [s for s in spans if s[0] == WINDOW]
         if not win:
             raise RuntimeError("the trace holds no portbench.window span")
         self.lo, self.hi = win[0][1], win[0][2]
-        self.ops = [(n, max(a, self.lo), min(b, self.hi)) for n, a, b in ops
-                    if b > self.lo and a < self.hi]
+        kept = [(o, max(o[1], self.lo), min(o[2], self.hi)) for o in ops
+                if o[2] > self.lo and o[1] < self.hi]
+        self.ops = [(o[0], a, b) for o, a, b in kept]
         self.spans = [s for s in spans if s[0] != WINDOW]
         self.busy = _union([(a, b) for _, a, b in self.ops])
+        # device seconds in the window by launch (correlation id), and the
+        # launch calls of those operations ordered by their host start
+        self._by_launch: Dict[int, float] = {}
+        for o, a, b in kept:
+            if len(o) > 3 and o[3]:
+                self._by_launch[o[3]] = self._by_launch.get(o[3], 0.0) \
+                    + (b - a) / 1e9
+        first: Dict[int, int] = {}
+        for c, t in launches:
+            if c in self._by_launch:
+                first[c] = min(t, first.get(c, t))
+        self._launches = sorted((t, c) for c, t in first.items())
+        self._launch_ts = [t for t, _ in self._launches]
 
     @property
     def window_s(self) -> float:
@@ -88,6 +112,22 @@ class Trace:
                 busy = sum(y - x for x, y in _clip(self.busy, a, b))
                 out.append(((b - a) / 1e9, busy / 1e9))
         return out
+
+    def launched_s(self, spans: Sequence[Tuple[int, int]]) \
+            -> Optional[float]:
+        """Device seconds of the operations whose launch call started on
+        the host inside one of ``spans`` (``(start_ns, end_ns)``, on the
+        host's clock, apart from each other), wherever on the device's
+        timeline they ran; None where no operation's launch was recorded
+        (a trace without correlation ids)."""
+        if not self._launches:
+            return None
+        total = 0.0
+        for a, b in spans:
+            i = bisect.bisect_left(self._launch_ts, a)
+            j = bisect.bisect_left(self._launch_ts, b)
+            total += sum(self._by_launch[c] for _, c in self._launches[i:j])
+        return total
 
     def gaps(self) -> List[Tuple[str, float]]:
         """Every idle stretch of the window, labelled by the shortest
@@ -134,15 +174,21 @@ class Recorder:
             return False
         self._prof.__exit__(*exc)
         if exc[0] is None:
-            ops, spans = [], []
+            ops, spans, launches = [], [], []
             for e in self._prof.profiler.kineto_results.events():
                 name = e.name()
+                # a device operation and the runtime or driver call that
+                # launched it carry the same correlation id
                 if _is_device_op(e):
-                    ops.append((name[:80], _ns(e, "start"), _ns(e, "end")))
-                elif name.startswith("portbench.") and \
-                        e.device_type() != torch.autograd.DeviceType.CUDA:
+                    ops.append((name[:80], _ns(e, "start"), _ns(e, "end"),
+                                e.correlation_id()))
+                elif e.device_type() == torch.autograd.DeviceType.CUDA:
+                    continue
+                elif name.startswith("portbench."):
                     spans.append((name, _ns(e, "start"), _ns(e, "end")))
-            self.trace = Trace(ops, spans)
+                elif name.startswith("cu") and e.correlation_id():
+                    launches.append((e.correlation_id(), _ns(e, "start")))
+            self.trace = Trace(ops, spans, launches)
         return False
 
     def span(self, name: str):
