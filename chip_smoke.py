@@ -64,7 +64,9 @@ the port's examples.  Phases:
                   frontiers of the first batch, kernel 1 with the work its
                   row tiles walk and its compaction launch's time; kernel
                   3 and ``torch._int_mm`` at 1, 2, 4 and 8 row blocks a
-                  launch)
+                  launch; the row top-k on a row group's counts at
+                  65,536 and 30,454 terms beside ``torch.topk`` over
+                  int64 keys)
   8. mesh         the CSL index on a term and a doc mesh of MESH_SHARDS
                   shards of the card, each answer == the unsharded one
                   of this run: the 64 queries under "fused" and "pallas"
@@ -255,6 +257,7 @@ N_QUERIES = 64
 N_ORACLE = 8                   # queries per method held against the oracle
 MID_DOCS, MID_TERMS = 1 << 15, 1 << 13
 MAT_K, ROW_TILE = 16, 128      # materialization: top-k per term, row block
+MESH_TERMS = 30_454            # MeSH 2024 descriptors (medline-network)
 # approximate materialization at its defaults (threshold 0.5, 128
 # permutations: 26 bands of 4 rows); kernel 1 held against its plain
 # version on gathered candidate tiles of these widths
@@ -468,21 +471,26 @@ def network_row(net, t, k):
             if o]
 
 
-def staged_launches(pidx, step: int) -> int:
-    """Kernel 3 launches of the staged "pallas" sweep over ``pidx``: one a
-    chunk of ``DOC_CHUNK`` documents of each row group's union (the
-    documents holding one of the group's ``step`` terms), none for an
-    empty group."""
+def staged_unions(pidx, step: int):
+    """The size of each row group's union in the staged "pallas" sweep
+    over ``pidx``: the documents holding one of the group's ``step``
+    terms (empty groups past the last non-empty one left out)."""
     import torch
     from repro_torch.core.inverted_index import forward_index
-    from repro_torch.core.materialize import DOC_CHUNK
     fwd = forward_index(pidx)
     cap = fwd.ptr.numel() - 1
     doc = torch.repeat_interleave(torch.arange(cap, device=fwd.ptr.device),
                                   fwd.ptr.diff())
     pairs = torch.unique(fwd.terms.to(torch.int64) // step * cap + doc)
-    unions = torch.bincount(pairs // cap)
-    return int((-(-unions // DOC_CHUNK)).sum())
+    return torch.bincount(pairs // cap)
+
+
+def staged_launches(pidx, step: int) -> int:
+    """Kernel 3 launches of the staged "pallas" sweep over ``pidx``: one a
+    chunk of ``DOC_CHUNK`` documents of each row group's union, none for
+    an empty group."""
+    from repro_torch.core.materialize import DOC_CHUNK
+    return int((-(-staged_unions(pidx, step) // DOC_CHUNK)).sum())
 
 
 def same_network(a, b) -> bool:
@@ -1184,6 +1192,9 @@ def phase_materialize(dev, ctx, hidx, launches):
 
     n_blocks = -(-v // ROW_TILE)
     n_launch = staged_launches(ctx.index, GROUP * ROW_TILE)
+    # one top-k a row group with documents ("pallas"), a row block ("gemm")
+    n_topk = {"pallas": int((staged_unions(ctx.index, GROUP * ROW_TILE)
+                             > 0).sum()), "gemm": n_blocks}
     nets, secs = {}, {}
     for method in ("pallas", "gemm"):
         torch.cuda.synchronize()
@@ -1205,6 +1216,11 @@ def phase_materialize(dev, ctx, hidx, launches):
                                      f"chunks of groups of {GROUP} row "
                                      "blocks")
             launches["cooccur_counts"] = counts["cooccur_counts"]
+            launches["row_topk"] = counts["row_topk"]
+        if counts["row_topk"] != n_topk[method]:
+            raise AssertionError(f"{counts['row_topk']} row top-k launches "
+                                 f"for {n_topk[method]} row sets of "
+                                 f"method {method}")
         if extra_gb > xd.numel() / 2e9:
             # a copy of the 26 GB operand would show here
             raise AssertionError(f"method {method} took {extra_gb:.1f} GB "
@@ -2396,7 +2412,9 @@ def phase_kernels(dev, ctx, seeds, launches):
     level-0, level-1 and level-2 frontiers of the first CSL batch, through
     the same code the engine runs (the JSON entries are level 1's); kernel
     3 at groups of 1, 2, 4 and 8 row blocks of the whole-network sweep
-    (the JSON entry is GROUP's, the sweep's own)."""
+    (the JSON entry is GROUP's, the sweep's own); the row top-k on one
+    row group's counts at the CSL width and at MESH_TERMS (the JSON entry
+    is the CSL width's)."""
     import torch
     from repro_torch.core import unpack_bitmap
     from repro_torch.core.cooccurrence import _expand_level, initial_state
@@ -2567,6 +2585,43 @@ def phase_kernels(dev, ctx, seeds, launches):
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms}
         del x_l
+    out.append(entry)
+
+    # the per-row top-k of one row group's counts (the sweep's reduction
+    # of each group) at CSL's width and, packed, at MeSH's (rows not
+    # 16-byte aligned), beside its plain version and the torch.topk over
+    # int64 keys that it replaced (the plain version's top-k alone)
+    m = GROUP * ROW_TILE
+    x_l = unpack_bitmap(pt[:m, :w], torch.int8).t()
+    full = ops.cooccur_counts(x_l, xd)[:, :v]
+    del x_l
+    entry = None
+    for width in (v, min(MESH_TERMS, v)):
+        cnt = full[:, :width].contiguous()
+        got = ops.row_top_k(cnt, 0, MAT_K)
+        want, plain_ms = _event_ms(lambda: ref.row_top_k_ref(cnt, 0, MAT_K))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"row top-k kernel != plain at {m} x "
+                                 f"{width} counts")
+        ms = cuda_ms(lambda: ops.row_top_k(cnt, 0, MAT_K), 20)
+        lib_ms = cuda_ms(lambda: ref.topk_lower_index(cnt, MAT_K), 3)
+        n_bytes = cnt.numel() * 4 + m * MAT_K * 12
+        bound_ms, bound_by = _bound_ms(n_bytes, 0, 1.0)
+        say("kernels", kernel="row_topk", rows=m, terms=width, k=MAT_K,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, bytes=n_bytes,
+            topk_int64_ms=f"{lib_ms:.4f}",
+            gb_per_s=f"{n_bytes / ms / 1e6:.1f}")
+        if entry is None:
+            entry = {"name": "row_topk", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/row_topk.cu",
+                     "replaces": "none: torch.topk over int64 keys "
+                                 "(kernels/ref.py::topk_lower_index)",
+                     "launches": launches["row_topk"], "max_abs_err": 0,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+        del cnt, got, want
+    del full
     out.append(entry)
     return out
 

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch import tracing
-from repro_torch.core.cooccurrence import _resolve_operands, chunked_top_k
+from repro_torch.core.cooccurrence import _resolve_operands
 from repro_torch.core.inverted_index import (
     ForwardIndex,
     PackedIndex,
@@ -93,7 +93,7 @@ from repro_torch.core.sketch import (
     minhash_signatures,
     pad_candidates,
 )
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 #: row blocks of method "pallas" per row group: one pass over the group's
@@ -130,18 +130,17 @@ def _row_masks(rows: torch.Tensor, r0: int, bm: int) -> torch.Tensor:
     return masks
 
 
-def _row_top_k(counts: torch.Tensor, r0: int, bm: int, k: int):
-    """The (bm, k) top-k of a block's (bm, V) counts, self pairs
-    excluded (the ``cooc.materialize.topk`` span)."""
-    v = counts.shape[1]
+def _row_top_k(counts: torch.Tensor, r0: int, k: int):
+    """The top-k of a block's (bm, V) counts, self pairs excluded (the
+    ``cooc.materialize.topk`` span): ``ops.row_top_k``, the hand-written
+    kernel on a CUDA tensor, for k up to its limit; above it the plain
+    version, ``torch.topk`` over int64 keys.  Either way no device tensor
+    is built from a host value, so the sweep never waits for the device
+    here."""
     with tracing.span("cooc.materialize.topk"):
-        # self pairs; a pad row's entry is sliced off with its row
-        dev = counts.device
-        terms = torch.arange(r0, r0 + bm, device=dev).clamp(max=v - 1)
-        counts = counts.index_put(
-            (torch.arange(bm, device=dev), terms),
-            torch.tensor(-1, dtype=counts.dtype, device=dev))
-        return chunked_top_k(counts, k)
+        if k > ops.ROW_TOPK_MAX_K:
+            return ref.row_top_k_ref(counts, r0, k)
+        return ops.row_top_k(counts, r0, k)
 
 
 def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
@@ -174,7 +173,7 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
             counts = ops.cooccur_counts(x_l, operands["x_dense"])[:, :v]
         else:
             counts = get_count_method(method).fn(pidx, masks, operands)
-    return _row_top_k(counts, r0, bm, k)
+    return _row_top_k(counts, r0, k)
 
 
 class _SweepPlan(NamedTuple):
@@ -322,7 +321,7 @@ def _staged_block_topk(plan: _SweepPlan, g: int, abuf: torch.Tensor,
                 abuf.index_fill_(0, fa, 0)
                 bbuf.index_fill_(0, fb, 0)
         c0 += nd
-    return _row_top_k(counts, r0, bm, k)
+    return _row_top_k(counts, r0, k)
 
 
 def _compacted_sweep(pidx: PackedIndex, ctx: Optional[QueryContext],

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: every kernel source of the package
 SOURCES = ("postings", "level_step", "cooccur", "dot_interaction",
-           "flash_decode")
+           "flash_decode", "row_topk")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

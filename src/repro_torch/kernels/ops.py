@@ -28,11 +28,12 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.row_topk import MAX_K as ROW_TOPK_MAX_K
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"postings_counts": 0, "level_step": 0,
                              "cooccur_counts": 0, "dot_interaction": 0,
-                             "flash_decode": 0}
+                             "flash_decode": 0, "row_topk": 0}
 #: the co-occurrence launches by the path the kernel reports it took:
 #: ``"tma"`` (wgmma fed by TMA, the main path) or ``"bytes"`` (the
 #: mma.sync fallback for operands TMA cannot describe)
@@ -84,7 +85,8 @@ def kernel_cost(name: str, *args: torch.Tensor, **kw) -> Tuple[int, int]:
 
     postings_counts(masks, packed) / level_step(masks, packed, terms,
     valid, visited, v=, k=) / cooccur_counts(x_l, x_r) /
-    dot_interaction(x) / flash_decode(q, k, v)."""
+    dot_interaction(x) / flash_decode(q, k, v) / row_topk(counts, k=):
+    one comparison a count."""
     if name == "postings_counts":
         masks, packed = args
         (r, w), v = masks.shape, packed.shape[1]
@@ -108,6 +110,10 @@ def kernel_cost(name: str, *args: torch.Tensor, **kw) -> Tuple[int, int]:
         b, hq, d = q.shape
         s = k.shape[1]
         return 4 * b * hq * s * d, 2 * _nbytes(q, k) + b * 4
+    if name == "row_topk":
+        counts, = args
+        r, v = counts.shape
+        return r * v, _nbytes(counts) + r * kw["k"] * (4 + 8)
     raise KeyError(name)
 
 
@@ -238,6 +244,41 @@ def cooccur_counts(x_l: torch.Tensor, x_r: torch.Tensor) -> torch.Tensor:
             _charge("cooccur_counts", x_l, x_r)
         return out
     return ref.cooccur_counts_ref(x_l, x_r)
+
+
+def row_top_k(counts: torch.Tensor, r0: int, k: int):
+    """Each row's exact top-k of a row block's (R, V) int32 counts, row
+    ``r`` being term ``r0 + r``, its self pair excluded: column ``min(r0 +
+    r, V - 1)`` counts -1, below every zero count (a pad row past V hides
+    column V - 1).  Values descending, lower column first on ties, as
+    ``lax.top_k``; ``k > V`` clamps to V and pads the missing slots with
+    weight -1 / id 0, as ``chunked_top_k`` does.  Returns (weights (R, k)
+    int32, ids (R, k) int64).  Takes ``1 <= k <= ROW_TOPK_MAX_K`` on every
+    device and raises for another k.  No reference kernel: the whole-
+    network sweep's reduction of each row group's counts
+    (``core.materialize._row_top_k``)."""
+    if not 1 <= k <= ROW_TOPK_MAX_K:
+        raise ValueError(f"row_top_k takes 1 <= k <= {ROW_TOPK_MAX_K}, "
+                         f"got k={k}")
+    if counts.dim() != 2:
+        raise ValueError(f"counts must be (R, V), got shape "
+                         f"{tuple(counts.shape)}")
+    r, v = counts.shape
+    k_eff = min(k, v)
+    if _is_meta(counts):
+        _charge("row_topk", counts, k=k_eff)
+        return (torch.empty((r, k), dtype=torch.int32, device=counts.device),
+                torch.empty((r, k), dtype=torch.int64, device=counts.device))
+    if not _on_cuda(counts):
+        return ref.row_top_k_ref(counts, r0, k)
+    from repro_torch.kernels.row_topk import row_top_k_cuda
+    w, i = row_top_k_cuda(counts, r0, k_eff)
+    _count("row_topk")
+    _charge("row_topk", counts, k=k_eff)
+    if k_eff < k:
+        w = torch.nn.functional.pad(w, (0, k - k_eff), value=-1)
+        i = torch.nn.functional.pad(i, (0, k - k_eff), value=0)
+    return w, i
 
 
 def cooccur_counts_sharded(x_l: torch.Tensor, x_r: torch.Tensor, *,

@@ -4,10 +4,12 @@ Each function here computes exactly what its CUDA kernel computes, in
 ordinary tensor code: the CPU path of :mod:`repro_torch.kernels.ops`, the
 oracle of the tests, and the reference ``chip_smoke.py`` holds each kernel
 against on the card.  A CUDA tensor never reaches these functions through
-``ops``.  One exception outside ``ops``: :func:`postings_counts_ref` is also
+``ops``.  Two exceptions outside ``ops``: :func:`postings_counts_ref` is also
 the served ``"popcount"`` count method on every device
-(``core.inverted_index.doc_freq_under_batch``), so a change to it changes
-that method's answers and speed, not only the yardstick.
+(``core.inverted_index.doc_freq_under_batch``), and :func:`row_top_k_ref`
+the whole-network top-k for a k above the kernel's limit
+(``core.materialize._row_top_k``), so a change to either changes served
+answers and speed, not only the yardstick.
 
 Bitmaps are int32 tensors holding uint32 bit patterns (torch's uint32 has
 no ``>>`` on the CPU).  Every arithmetic shift below is masked, or applied
@@ -114,6 +116,26 @@ def topk_lower_index(x: torch.Tensor, k: int):
     val = torch.div(top, _TWO32, rounding_mode="floor")
     idx = (n - 1) - (top - val * _TWO32)
     return val.to(torch.int32), idx
+
+
+def row_top_k_ref(counts: torch.Tensor, r0: int, k: int):
+    """Each row's exact top-k of a row block's (R, V) counts, row ``r``
+    being term ``r0 + r``, its self pair excluded: column ``min(r0 + r,
+    V - 1)`` counts -1, below every zero count (a pad row past V hides
+    column V - 1).  ``lax.top_k`` order; ``k > V`` clamps to V and pads
+    the missing slots with weight -1 / id 0, as ``chunked_top_k`` does.
+    Returns (weights (R, k) int32, ids (R, k) int64).  The plain version
+    of ``csrc/row_topk.cu``."""
+    r, v = counts.shape
+    rows = torch.arange(r, device=counts.device)
+    counts = counts.clone()
+    counts[rows, (rows + r0).clamp(max=v - 1)] = -1
+    k_eff = min(k, v)
+    w, i = topk_lower_index(counts, k_eff)
+    if k_eff < k:
+        w = torch.nn.functional.pad(w, (0, k - k_eff), value=-1)
+        i = torch.nn.functional.pad(i, (0, k - k_eff), value=0)
+    return w, i
 
 
 def masked_counts(counts: torch.Tensor, terms: torch.Tensor,

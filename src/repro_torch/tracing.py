@@ -35,8 +35,10 @@ from typing import Deque, Dict, List, Tuple
 import torch.autograd.profiler as _profiler
 
 #: spans the ring holds: a 30 s window of the busiest serving traffic
-#: opens a few tens of thousands
-CAPACITY = 1 << 17
+#: opens a few tens of thousands; the whole-network sweep about 520 a
+#: CSL network (a masks, chunk, count and top-k span a row group), over
+#: 120,000 in a window at 0.1 s a network
+CAPACITY = 1 << 19
 
 #: what :func:`span` returns while nothing records
 NO_SPAN = contextlib.nullcontext()

@@ -45,7 +45,8 @@ def smoke(monkeypatch):
     sys.modules.pop("chip_smoke", None)
     import chip_smoke
     from repro_torch.kernels import (cooccur, dot_interaction, flash_decode,
-                                     level_step, ops, postings, ref)
+                                     level_step, ops, postings, ref,
+                                     row_topk)
     for name, value in [
             ("Event", _Event), ("synchronize", lambda *a: None),
             ("reset_peak_memory_stats", lambda *a: None),
@@ -82,8 +83,10 @@ def smoke(monkeypatch):
     monkeypatch.setattr(flash_decode, "flash_decode_cuda",
                         lambda q, k, v, ln, chunk: ref.flash_decode_ref(
                             q, k, v, ln, chunk=chunk))
+    monkeypatch.setattr(row_topk, "row_top_k_cuda", ref.row_top_k_ref)
     for name, value in [("CSL_DOCS", 1500), ("CSL_TERMS", 256),
                         ("MID_DOCS", 1024), ("MID_TERMS", 128),
+                        ("MESH_TERMS", 250),
                         ("N_QUERIES", 16), ("DLRM_VOCAB", 1000),
                         ("SHA_PROBE_BYTES", 1 << 20),
                         ("SERVE_P99", 16), ("SERVE_BULK", 96),
@@ -119,14 +122,14 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert mesh["cooccur_counts"] == 2 + 4 + 4
     assert mesh["postings_counts"] >= 3 * 24
     assert [k["name"] for k in kernels] == ["postings_counts", "level_step",
-                                            "cooccur_counts"]
-    assert [k["launches"] for k in kernels] == [6, 6, 1]
+                                            "cooccur_counts", "row_topk"]
+    assert [k["launches"] for k in kernels] == [6, 6, 1, 1]
     for k in kernels:
         assert set(k) == KEYS
         assert k["max_abs_err"] == 0
         assert (ROOT / k["source"]).is_file()
         assert k["bound_ms"] > 0 and k["bound_by"] in ("bytes", "operations")
-    assert kernels[2]["bound_by"] == "bytes"
+    assert kernels[2]["bound_by"] == kernels[3]["bound_by"] == "bytes"
     assert ctx.unpack_count == 1        # the yardsticks reuse x_dense
     out = capsys.readouterr().out
     assert "[csl] method=fused" in out and "[csl] method=pallas" in out

@@ -585,6 +585,13 @@ def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     kv = torch.zeros((1, 4, 1, 12), device=cuda)
     with pytest.raises(ValueError):                 # d = 12
         ops.flash_decode(q, kv, kv, 4)
+    counts = torch.zeros((8, 300), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.row_top_k(counts.to(torch.int64), 0, 16)
+    with pytest.raises(ValueError):                 # columns not contiguous
+        ops.row_top_k(counts.t(), 0, 4)
+    with pytest.raises(ValueError):
+        ops.row_top_k(counts, 0, ops.ROW_TOPK_MAX_K + 1)
 
 
 @pytest.mark.gpu
@@ -787,6 +794,110 @@ def test_mesh_across_cards_matches_one_device(cuda, kind):
 
 # ---------------------------------------------------------------------------
 # the launch layer on the card
+def _row_counts(kind, r, v, device):
+    """(r, v) int32 counts: each row ascending or descending in its
+    columns, all equal, or Zipf-like (Poisson counts whose means fall with
+    the column, as a co-occurrence row's do)."""
+    g = torch.Generator(device=device).manual_seed(v + r)
+    col = torch.arange(v, device=device, dtype=torch.int32)
+    if kind == "ascending":
+        return (col[None, :] + torch.arange(r, device=device,
+                                            dtype=torch.int32)[:, None])
+    if kind == "descending":
+        return (v - col).expand(r, v).contiguous()
+    if kind == "equal":
+        return torch.full((r, v), 5, dtype=torch.int32, device=device)
+    w = 1.0 / (col.double() + 2.7) ** 1.15
+    scale = torch.rand((r, 1), generator=g, device=device,
+                       dtype=torch.float64) * 2e5
+    return torch.poisson(w[None, :] * scale, generator=g).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ascending", "descending", "equal",
+                                  "zipf"])
+@pytest.mark.parametrize("k", [1, 16, 17, 64, 128])
+@pytest.mark.parametrize("v", [65_536, 30_454])
+def test_row_top_k_kernel_matches_plain(cuda, v, k, kind):
+    """The row top-k kernel equals its plain version bit for bit on a row
+    group's (512, V) counts at CSL's and MeSH's widths (rows of 30,454
+    counts are not 16-byte aligned), self pairs included: r0 = 0, or
+    r0 = V - 300, whose last 212 rows are pad rows."""
+    counts = _row_counts(kind, 512, v, cuda)
+    for r0 in (0, v - 300):
+        before = ops.LAUNCHES["row_topk"]
+        got = ops.row_top_k(counts, r0, k)
+        assert ops.LAUNCHES["row_topk"] == before + 1
+        want = ref.row_top_k_ref(counts, r0, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (r0, kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,v,k,offset", [
+    (3, 50, 60, 0),          # k > V: the kernel takes 50, the wrapper pads
+    (1, 5, 4, 1),            # one ragged row, inside one 16-byte word
+    (7, 1000, 128, 3),       # rows of a wider buffer, off its alignment
+    (130, 4099, 33, 2),
+    (2, 40_000, 16, 0)])
+def test_row_top_k_kernel_on_ragged_views(cuda, r, v, k, offset):
+    """Views into a wider buffer (any row stride, any 4-byte offset) and
+    k above V: the kernel reads its columns in place and equals the plain
+    version."""
+    buf = _row_counts("zipf", r, v + 5, cuda)
+    counts = buf[:, offset:offset + v]
+    for r0 in (0, max(v - r // 2, 0)):
+        got = ops.row_top_k(counts, r0, k)
+        want = ref.row_top_k_ref(counts, r0, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), r0
+
+
+@pytest.mark.gpu
+def test_staged_sweep_takes_the_row_top_k_and_never_waits(cuda,
+                                                          monkeypatch):
+    """A CSL-shaped staged sweep (65,536 terms): one row top-k launch a
+    row group with documents, the network equal to "gemm"'s; once its
+    plan is built, the sweep runs without a synchronising call (sync
+    debug mode "error") and without torch.topk or torch.sort."""
+    import importlib
+    from repro_torch.core import materialize
+    from repro_torch.core.network import CoocNetwork
+    mat = importlib.import_module("repro_torch.core.materialize")
+    n, v, k = 30_000, 65_536, 16
+    docs = synthetic_csl(n, v, seed=12)
+    ctx = QueryContext.from_docs(docs, v, device=cuda)
+    step = mat.GROUP * 128
+    held = np.zeros((n, v // step), dtype=bool)
+    for i, d in enumerate(docs):
+        held[i, np.asarray(d, dtype=np.int64) // step] = True
+    groups = int((held.sum(0) > 0).sum())
+    before = ops.LAUNCHES["row_topk"]
+    net = materialize(ctx, k=k, method="pallas", use_cache=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["row_topk"] - before == groups
+    want = materialize(ctx, k=k, method="gemm", use_cache=False)
+    for a, b in zip(net, want):
+        assert torch.equal(a, b)
+
+    def refused(*a, **kw):
+        raise AssertionError("torch.topk or torch.sort in the sweep")
+
+    monkeypatch.setattr(torch, "topk", refused)
+    monkeypatch.setattr(torch, "sort", refused)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, i = mat._compacted_sweep(ctx.index, ctx, None, k=k, bm=128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.undo()
+    again = CoocNetwork(*mat._edge_slots(w[:v], i[:v].to(torch.int32)))
+    for a, b in zip(again, net):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -811,6 +922,10 @@ def _gpu_kernel_args(name, device):
         return (xt, xt), {}
     if name == "dot_interaction":
         return (torch.randn(64, 27, 64, generator=g).to(device),), {}
+    if name == "row_topk":
+        counts = torch.randint(0, 9, (8, 300), generator=g,
+                               dtype=torch.int32).to(device)
+        return (counts, 5, 16), {}
     q = torch.randn(2, 8, 64, generator=g).to(device)
     k = torch.randn(2, 256, 2, 64, generator=g).to(device)
     return (q, k, k.clone()), {}
@@ -819,12 +934,12 @@ def _gpu_kernel_args(name, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["postings_counts", "level_step",
                                   "cooccur_counts", "dot_interaction",
-                                  "flash_decode"])
+                                  "flash_decode", "row_topk"])
 def test_kernel_launches_charge_their_meta_counts(cuda, name):
     """A launch on the card charges a Counter exactly what its ``meta``
     stand-in charges: the launch layer's FLOP gate rests on it."""
     from repro_torch.launch.roofline import Counter
-    call = getattr(ops, name)
+    call = getattr(ops, {"row_topk": "row_top_k"}.get(name, name))
     got = {}
     for dev in (cuda, torch.device("meta")):
         args, kw = _gpu_kernel_args(name, dev)

@@ -502,3 +502,105 @@ def test_plan_positions_past_int32():
     pos = torch.tensor([65535]) * kp[:1] + (chunk - 1)
     assert pos.dtype == torch.int64 and pos.item() == 65536 * chunk - 1
     assert pos.item() > 2 ** 32
+
+
+# ---------------------------------------------------------------------------
+# the per-row top-k of a row block's counts (kernels.ops.row_top_k)
+# ---------------------------------------------------------------------------
+
+
+def _row_counts(case):
+    """(counts (R, V) int32, r0, k) of one named case."""
+    rng = np.random.default_rng(len(case))
+    if case == "ties":                       # three values over 300 columns
+        return rng.integers(0, 3, (6, 300)).astype(np.int32), 0, 16
+    if case == "few_positive":               # 0-5 positives a row, k 16
+        c = np.zeros((8, 400), np.int32)
+        for r in range(8):
+            c[r, rng.choice(400, r % 6, replace=False)] = rng.integers(
+                1, 4, r % 6)
+        return c, 100, 16
+    if case == "all_zero":
+        return np.zeros((4, 256), np.int32), 7, 8
+    if case == "pad_rows":                   # rows r0 + r >= V hide V - 1
+        return rng.integers(0, 5, (8, 97)).astype(np.int32), 94, 16
+    if case in ("v1000", "v30454"):          # Zipf-like rows
+        v = int(case[1:])
+        w = 1.0 / (np.arange(v) + 2.7) ** 1.15
+        c = rng.poisson(w[None, :] * rng.uniform(50, 5000, (5, 1)) * 20)
+        return c.astype(np.int32), v - 3, 17
+    if case == "k_over_v":                   # clamp, pad -1 / 0
+        return rng.integers(0, 4, (3, 50)).astype(np.int32), 10, 60
+    assert case == "near_int32_max"
+    c = (2 ** 31 - 1) - rng.integers(0, 3, (4, 333))
+    return c.astype(np.int32), 40, 32
+
+
+@pytest.mark.parametrize("case", ["ties", "few_positive", "all_zero",
+                                  "pad_rows", "v1000", "v30454", "k_over_v",
+                                  "near_int32_max"])
+def test_row_top_k_matches_reference_chunked_top_k(case):
+    """The plain version and the wrapper on a CPU tensor: each row's
+    top-k with its self pair (column min(r0 + r, V - 1)) at -1, exactly
+    the reference's ``chunked_top_k`` of the counts so masked by hand:
+    values, ids and tie order; the counts are left as they were."""
+    from repro.core.cooccurrence import chunked_top_k as j_chunked_top_k
+    from repro_torch.kernels import ops, ref
+    counts, r0, k = _row_counts(case)
+    r, v = counts.shape
+    masked = counts.copy()
+    masked[np.arange(r), np.minimum(r0 + np.arange(r), v - 1)] = -1
+    w_want, i_want = j_chunked_top_k(jnp.asarray(masked), k)
+    x = torch.from_numpy(counts.copy())
+    for fn in (ref.row_top_k_ref, ops.row_top_k):
+        w, i = fn(x, r0, k)
+        assert (w.dtype, i.dtype, tuple(w.shape)) == (
+            torch.int32, torch.int64, (r, k))
+        np.testing.assert_array_equal(w.numpy(), np.asarray(w_want))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_want))
+    np.testing.assert_array_equal(x.numpy(), counts)
+
+
+def test_row_top_k_refuses_a_k_it_does_not_take():
+    """The wrapper takes 1 <= k <= ROW_TOPK_MAX_K on every device; on
+    ``meta`` it returns the outputs' shapes and charges one comparison a
+    count and the counts' bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import Counter
+    x = torch.zeros((4, 200), dtype=torch.int32)
+    for k in (0, ops.ROW_TOPK_MAX_K + 1):
+        with pytest.raises(ValueError, match="row_top_k takes"):
+            ops.row_top_k(x, 0, k)
+    with Counter() as c:
+        w, i = ops.row_top_k(x.to("meta"), 0, 16)
+    assert (w.shape, i.shape, w.dtype, i.dtype) == (
+        (4, 16), (4, 16), torch.int32, torch.int64)
+    assert c.kernels["row_topk"]["launches"] == 1
+    assert c.kernel_ops == 4 * 200
+
+
+def test_sweep_reduces_each_group_through_the_row_top_k_wrapper(monkeypatch):
+    """With the wrappers told the tensors are on the card (the kernels'
+    plain versions in the launchers' place), the staged "pallas" sweep
+    launches the row top-k once a row group with documents and "gemm"
+    once a row block, for k up to the kernel's limit; a larger k keeps
+    the plain top-k and launches nothing.  The networks are the
+    reference's."""
+    from repro_torch.kernels import cooccur, ops, ref, row_topk
+    from repro_torch.core.materialize import GROUP
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(cooccur, "cooccur_counts_cuda", lambda a, b: (
+        ref.cooccur_counts_ref(a.t(), b.t()), "tma"))
+    monkeypatch.setattr(row_topk, "row_top_k_cuda", ref.row_top_k_ref)
+    vocab, row_tile = 1024, 32
+    docs = _zipf_docs(300, vocab, seed=34, hole=(640, 768))
+    t_ctx, j_ctx = _contexts(docs, vocab)
+    groups = int((_unions(docs, vocab, GROUP * row_tile) > 0).sum())
+    assert groups == vocab // (GROUP * row_tile) - 1
+    for method, k, launched in (("pallas", 8, groups),
+                                ("gemm", 8, vocab // row_tile),
+                                ("pallas", ops.ROW_TOPK_MAX_K + 2, 0)):
+        ops.reset_launches()
+        net = materialize(t_ctx, k=k, method=method, row_tile=row_tile)
+        assert ops.LAUNCHES["row_topk"] == launched, (method, k)
+        _same_net(net, j_materialize(j_ctx, k=k, method="gemm"))

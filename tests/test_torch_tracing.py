@@ -104,7 +104,7 @@ def test_a_span_from_a_second_thread_is_kept():
 
 
 def test_a_full_ring_counts_dropped_and_does_not_grow(monkeypatch):
-    assert tracing.CAPACITY == 1 << 17
+    assert tracing.CAPACITY == 1 << 19
     monkeypatch.setattr(tracing, "_RING", collections.deque(maxlen=4))
     with _profile():
         for i in range(6):
