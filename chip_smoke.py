@@ -3,12 +3,20 @@
 
     python3 chip_smoke.py
 
+Three commands cover the port on the card:
+
+- ``PYTHONPATH=src python3 -m pytest -q -m gpu tests/test_torch_gpu.py``
+  holds each hand-written kernel against its plain PyTorch version;
+- ``python3 -m portbench.run --workload <cell>`` measures the cells of
+  ``BENCHMARK.json`` (``csl-network``, ``medline-network``, ``csl-batch``);
+- this script measures the paths and kernels that have no cell there, and
+  writes the kernel table (the kernels JSON of its last lines).
+
 Run from the root of a checkout on a host with a CUDA card and ``nvcc``:
 it builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, serves the
-paper's query at the CSL scale (396,209 docs, 65,536 terms, depth 3, top-k
-16, beam 32, 8 queries per batch) through ``QueryContext`` and
-``CoocEngine`` with the two BFS kernel methods, materializes the whole
+serves the paper's query at the CSL scale (396,209 docs, 65,536 terms,
+depth 3, top-k 16, beam 32, 8 queries per batch) through ``QueryContext``
+and ``CoocEngine`` with the two BFS kernel methods, materializes the whole
 CSL network (top-16 per term) exactly through the co-occurrence kernel and
 approximately through the postings kernel, checks the answers against the
 host oracle, serves and materializes the same index on a term and a doc
@@ -25,16 +33,7 @@ answers ids out of range on each path as the reference does and runs
 the port's examples.  Phases:
 
   1. device       the card (``nvidia-smi``), the kernels' build
-  2. parity       the three CSL kernels == their plain versions, exact, at
-                  small, ragged, sparse and mid shapes (2^15 docs x 2^13 terms,
-                  256 rows, one group of 128-term row blocks), kernel 3 on
-                  both of its paths, kernel 1 on the approximate sweep's
-                  operands (postings-row masks against gathered candidate
-                  columns, C = 64, 256, 4096); methods "gemm" and
-                  "popcount" served, and all four methods materialized,
-                  at the mid size; kernels 4 and 5 == their plain
-                  versions at odd shapes, within DOT_TOL / DECODE_TOL
-  3. strings      the quickstart corpus through ``CoocIndex(device="cuda")``
+  2. strings      the quickstart corpus through ``CoocIndex(device="cuda")``
                   for all four methods == the host oracle (queries, the
                   whole network and its statistics), then an ingest; the
                   index saved and loaded back answers like the live one,
@@ -46,19 +45,19 @@ the port's examples.  Phases:
                   (``CoocIndex.load(mesh=)``), 8 requests through
                   ``CoocServer.from_snapshot(mesh=)`` == a direct
                   engine, and ``CoocIndex(devices=1)`` a one-shard mesh
-  4. csl          the CSL-scale serving run, per BFS kernel method
-  5. materialize  the whole CSL network, method "pallas" (the kernel, one
+  3. csl          the CSL-scale serving run, per BFS kernel method
+  4. materialize  the whole CSL network, method "pallas" (the kernel, one
                   launch a chunk of a row group's documents, on its TMA
                   path) and
                   "gemm" (``torch._int_mm``): identical, 16 rows == the
                   host oracle
-  6. approx       the approximate CSL sweep (k 16, threshold 0.5, 128
+  5. approx       the approximate CSL sweep (k 16, threshold 0.5, 128
                   permutations): signatures, host banding, each row block
                   counted against its candidates through kernel 1
                   ("pallas") and ``torch._int_mm`` ("gemm"): identical;
                   every emitted weight == its pair's count; 64 signatures
                   == numpy
-  7. kernels      each CSL kernel timed at the main path's shapes beside
+  6. kernels      each CSL kernel timed at the main path's shapes beside
                   its plain version, its bound and a PyTorch yardstick
                   (kernels 1 and 2 at the level-0, level-1 and level-2
                   frontiers of the first batch, kernel 1 with the work its
@@ -67,7 +66,7 @@ the port's examples.  Phases:
                   launch; the row top-k on a row group's counts at
                   65,536 and 30,454 terms beside ``torch.topk`` over
                   int64 keys)
-  8. mesh         the CSL index on a term and a doc mesh of MESH_SHARDS
+  7. mesh         the CSL index on a term and a doc mesh of MESH_SHARDS
                   shards of the card, each answer == the unsharded one
                   of this run: the 64 queries under "fused" and "pallas"
                   (one launch a level per shard: kernel 2 on the term
@@ -77,7 +76,7 @@ the port's examples.  Phases:
                   network and the signatures (term mesh); a profiled
                   batch per mesh and method; then the CSL context is
                   freed
-  9. stream       the streaming tier at the stream_ingest cell: a window of
+  8. stream       the streaming tier at the stream_ingest cell: a window of
                   396,209 CSL docs (capacity pinned at 396,224 slots)
                   filled in blocks of 4,096, then 8 rounds of 4,096 new
                   docs tagged "rounds", each evicting and spilling the
@@ -87,14 +86,14 @@ the port's examples.  Phases:
                   network (kernel 3 over the live and cold tiers stacked)
                   == that of a fresh context over all 428,977 docs; one
                   "gemm" rebuild timed
- 10. snapshot     the stream's ring (97 live blocks, 8 cold) sketched, its
+  9. snapshot     the stream's ring (97 live blocks, 8 cold) sketched, its
                   all-time approx network built (kernel 1), saved to local
                   disk (about 6.8 GB) and loaded back on the card by the
                   serve phase's warm start: equal bits, doc_freq, ring,
                   scopes and cold payloads; no block rehashed; the same
                   "fused" batch and approx network; one more evicting
                   ingest leaves both identical
- 11. serve        ``CoocServer.from_snapshot`` of that directory serving
+ 10. serve        ``CoocServer.from_snapshot`` of that directory serving
                   three tenants: alpha pinned to "rounds" and beta
                   unscoped on the shared lane ("fused", kernel 2), gamma on
                   a dedicated 2^15-doc x 2^13-term context ("pallas",
@@ -108,16 +107,16 @@ the port's examples.  Phases:
                   1%); 64 served requests == a direct engine before and
                   after, 8 of gamma's == the host oracle; a never-seen
                   plan's first step; one full batch under the profiler
- 12. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
+ 11. dlrm         dlrm-rm2 (26 x 10^6 x 64 fp32 table) built from a seeded
                   generator, served at serve_p99, serve_bulk and
                   retrieval_cand through kernel 4, 64 rows of each held
                   against float64; kernel 4 and torch.bmm's full Gram
                   timed at each cell's interaction input, the kernels' own
                   device time (profiler) apart from the host time a call
- 13. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
+ 12. decode       kernel 5 through ``ops.flash_decode`` at decode_32k and
                   long_500k, ragged lengths (a 0 and a 1 among them) ==
                   the plain version; then timed at full lengths
- 14. lm           the language-model serving path, which runs none of the
+ 13. lm           the language-model serving path, which runs none of the
                   five kernels (the reference decodes through its plain
                   ``decode_attn``): llama3-8b (GQA, 32 layers) and
                   deepseek-v2-lite-16b (MLA, 64 experts top-6 and 2
@@ -134,7 +133,7 @@ the port's examples.  Phases:
                   card and through the port on the CPU: identical greedy
                   tokens, logits within LM_CPU_TOL; no kernel launch
                   count moves
- 15. side         the seed's side models at their published widths, fp32
+ 14. side         the seed's side models at their published widths, fp32
                   weights from a seeded generator, none of the five
                   kernels on their paths: deepfm (39 x 10^6 x 10 table),
                   sasrec and bert4rec (10^6 + 2 items) served at
@@ -156,7 +155,7 @@ the port's examples.  Phases:
                   each arch at the reference's reduced_config size on
                   the card == the port on the CPU (SIDE_CPU_TOL); no
                   kernel launch count moves
- 16. train        training through ``repro_torch.launch.train.train``:
+ 15. train        training through ``repro_torch.launch.train.train``:
                   dlrm-rm2 at full size (26 x 10^6 x 64 fp32 table, AdamW
                   fp32 moments, batch 65,536) for 10 steps with a
                   checkpoint at step 10 (on local disk, removed after),
@@ -178,7 +177,7 @@ the port's examples.  Phases:
                   the reference's reduced_config through ``train()`` on
                   the card and on the CPU from one step-0 checkpoint:
                   losses and step-3 weights within TRAIN_CPU_TOL
- 17. launch       the launch layer's dry-run (``repro_torch.launch``):
+ 16. launch       the launch layer's dry-run (``repro_torch.launch``):
                   all 44 of the reference's cells planned on its 16x16
                   and 2x16x16 production meshes of ``meta`` placeholders
                   (one process a cell), each counted once on a
@@ -199,7 +198,7 @@ two lines are the kernels JSON and ``{"ok": true, "device": ...}``.  It
 imports nothing of jax or of the reference package.  Without a CUDA
 device, or outside a checkout, it exits non-zero before printing a result.
 
- 18. ids          ids out of range on the card, each path used again in
+ 17. ids          ids out of range on the card, each path used again in
                   the same process after it: a CoocServer lane, unsharded
                   and on a term mesh of MESH_SHARDS shards, takes one
                   batch under all four methods mixing seeds V and V + 3
@@ -213,17 +212,17 @@ device, or outside a checkout, it exits non-zero before printing a result.
                   a bad edge: NaN exactly where the CPU puts it, the rest
                   within IDS_CPU_TOL; a synchronize after each, so that an
                   asynchronous device assert would surface in the phase
- 19. examples     the port's nine examples (``examples/torch_*.py``) at
+ 18. examples     the port's nine examples (``examples/torch_*.py``) at
                   their smallest arguments, each in its own process on
                   the card, EXAMPLES_JOBS at a time: each exits 0
 
-``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 12 alone, to
+``python3 chip_smoke.py --dlrm-only`` runs phases 1 and 11 alone, to
 compare kernel 4 between two trees on one card, and prints no result line;
-``--lm-only`` runs phases 1 and 14 alone and ``--side-only`` phases 1
-and 15 alone, ``--train-only`` phases 1 and 16 alone, ``--launch-only``
-phases 1 and 17 alone, ``--ids-only`` phases 1, 18 and 19 alone; none
+``--lm-only`` runs phases 1 and 13 alone and ``--side-only`` phases 1
+and 14 alone, ``--train-only`` phases 1 and 15 alone, ``--launch-only``
+phases 1 and 16 alone, ``--ids-only`` phases 1, 17 and 18 alone; none
 of them prints a result line.  Every phase
-but 16, 17 and 19 serves, and runs without an autograd graph.
+but 15, 16 and 18 serves, and runs without an autograd graph.
 """
 from __future__ import annotations
 
@@ -258,10 +257,6 @@ N_ORACLE = 8                   # queries per method held against the oracle
 MID_DOCS, MID_TERMS = 1 << 15, 1 << 13
 MAT_K, ROW_TILE = 16, 128      # materialization: top-k per term, row block
 MESH_TERMS = 30_454            # MeSH 2024 descriptors (medline-network)
-# approximate materialization at its defaults (threshold 0.5, 128
-# permutations: 26 bands of 4 rows); kernel 1 held against its plain
-# version on gathered candidate tiles of these widths
-APPROX_PARITY_COLS = (64, 256, 4096)
 N_SIGS_CHECKED = 64            # CSL signatures held against numpy
 SHA_PROBE_BYTES = 1 << 30      # bytes hashed to time the host's sha256
 N_ROWS_CHECKED = 16            # materialized CSL rows held against the oracle
@@ -533,366 +528,6 @@ def phase_device():
         cuda=torch.version.cuda, build_s=f"{secs:.2f}",
         ptxas=json.dumps(regs))
     return card
-
-
-def _level_args(rng, q, b, v, w, dev, density=0.8):
-    from repro_torch.core import from_uint32
-    import torch
-    r = q * b
-    packed = rng.integers(0, 1 << 32, (w, v), dtype=np.uint32)
-    masks = rng.integers(0, 1 << 32, (r, w), dtype=np.uint32)
-    masks[rng.random((r, w)) >= density] = 0
-    return (from_uint32(masks, dev), from_uint32(packed, dev),
-            torch.from_numpy(rng.integers(-1, v, r)).to(dev),
-            torch.from_numpy(rng.integers(0, 2, r).astype(bool)).to(dev),
-            torch.from_numpy(rng.integers(0, 2, (q, v)).astype(bool)).to(dev))
-
-
-def query_masks(rng, n_queries, beam, w, frac):
-    """Frontier masks shaped like the BFS's, as a uint32 numpy array: the
-    ``beam`` rows of a query are nonzero only inside its seed support (a
-    ``frac`` share of the W words, drawn anew per query), each row a random
-    subset of it."""
-    masks = np.zeros((n_queries * beam, w), np.uint32)
-    for qi in range(n_queries):
-        support = rng.choice(w, max(1, int(frac * w)), replace=False)
-        words = rng.integers(1, 1 << 32, (beam, support.size), dtype=np.uint32)
-        words[rng.random(words.shape) < 0.5] = 0
-        masks[qi * beam:(qi + 1) * beam, support] = words
-    return masks
-
-
-def _check_postings(masks, packed, what):
-    """Kernel 1 == its plain version, and its compaction launch == the
-    plain one."""
-    import torch
-    from repro_torch.kernels import postings, ref
-    if not torch.equal(postings.postings_counts_cuda(masks, packed),
-                       ref.postings_counts_ref(masks, packed)):
-        raise AssertionError(f"postings kernel != plain at {what}")
-    words, n = postings.active_words_cuda(masks)[:2]
-    want_words, want_n = ref.active_words_ref(masks, postings.ROWS)
-    first = torch.arange(words.shape[1], device=words.device) < n[:, None]
-    if not (torch.equal(n, want_n) and torch.equal(
-            torch.where(first, words, -1), want_words)):
-        raise AssertionError(f"postings compaction != plain at {what}")
-
-
-def _check_level(masks, packed, terms, valid, visited, v, k, dedup):
-    import torch
-    from repro_torch.kernels import ops, ref
-    got_w, got_i = ops.level_step(masks, packed, terms, valid, visited, v=v,
-                                  k=k, dedup=dedup)
-    k_eff = min(k, v)
-    want_w, want_i = ref.level_step_ref(masks, packed, terms, valid, visited,
-                                        v=v, k=k_eff, dedup=dedup)
-    if not (torch.equal(got_w[:, :k_eff], want_w)
-            and torch.equal(got_i[:, :k_eff], want_i)
-            and bool((got_w[:, k_eff:] == -1).all())
-            and bool((got_i[:, k_eff:] == 0).all())):
-        raise AssertionError(f"level_step kernel != plain version at "
-                             f"rows={masks.shape[0]} v={v} k={k} "
-                             f"dedup={dedup}")
-
-
-def _check_cooccur(xl, xr, path, what):
-    """Kernel 3 == its plain version, launched on ``path``."""
-    import torch
-    from repro_torch.kernels import ops, ref
-    before = dict(ops.COOCCUR_PATHS)
-    got = ops.cooccur_counts(xl, xr)
-    if ops.COOCCUR_PATHS[path] != before[path] + 1:
-        raise AssertionError(f"cooccur kernel did not take its {path} path "
-                             f"at {what}: {ops.COOCCUR_PATHS}")
-    if not torch.equal(got, ref.cooccur_counts_ref(xl, xr)):
-        raise AssertionError(f"cooccur kernel != plain at {what}")
-
-
-def structured_operand(kind, rows, d, dev):
-    """A (rows, d) int8 0/1 operand of kernel 3: all ones (every count is
-    d), or a shifted identity (row i holds doc 37 i mod d only), where a
-    wrong swizzle or descriptor would move counts to other cells."""
-    import torch
-    if kind == "ones":
-        return torch.ones((rows, d), dtype=torch.int8, device=dev)
-    x = torch.zeros((rows, d), dtype=torch.int8, device=dev)
-    i = torch.arange(rows, device=dev)
-    x[i, (i * 37) % d] = 1
-    return x
-
-
-# kernel 4: fp32 sums in another order, 1e-5 (the reference's tolerance);
-# bf16 outputs rounded from sums that may differ in the last bit, one step
-DOT_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-
-
-def _parity_dot(dev):
-    """Kernel 4 == its plain version at odd shapes: B not a multiple of a
-    group, F 8/27/40/64, E 10/16/63/64/256, both dtypes; B 1; B 512 in
-    bf16; both sides of each B where the launch plan switches; and x one
-    element into a buffer, which the bulk copies cannot fetch.  Returns
-    the cases by load path."""
-    import torch
-    from repro_torch.kernels import dot_interaction, ops, ref
-    gen = torch.Generator(device=dev).manual_seed(4)
-    # where the plan switches at F = 27: past one wave of one CTA a SM, and
-    # past the CTAs that fit on the card at once to the persistent ring
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wave = dot_interaction.MAX_WARPS * sms
-    big = dot_interaction.launch_plan(1 << 20, 27, 64, 4, True, sms)
-    ring = big.grid * big.samples
-    paths = {"bulk": 0, "plain": 0}
-    for b, f, e, dt, offset in [
-            (37, 27, 64, torch.float32, 0), (1, 27, 64, torch.float32, 0),
-            (64, 8, 16, torch.float32, 0), (256, 40, 10, torch.float32, 0),
-            (1001, 64, 256, torch.float32, 0),
-            (513, 27, 64, torch.bfloat16, 0), (512, 27, 64, torch.bfloat16, 0),
-            (5, 27, 63, torch.bfloat16, 0), (3, 2, 1, torch.float32, 0),
-            (wave, 27, 64, torch.float32, 0),
-            (wave + 1, 27, 64, torch.float32, 0),
-            (ring, 27, 64, torch.float32, 0),
-            (ring + 1, 27, 64, torch.float32, 0),
-            (ring + 1, 27, 64, torch.bfloat16, 0),
-            (512, 27, 64, torch.float32, 1), (300, 27, 64, torch.bfloat16, 1)]:
-        buf = torch.randn(b * f * e + offset, generator=gen, device=dev)
-        x = buf.to(dt)[offset:].view(b, f, e)
-        bulk = dot_interaction.bulk_ok(x.data_ptr(), e, x.element_size())
-        if bulk and offset:
-            raise AssertionError(f"dot_interaction at {(b, f, e, dt, offset)} "
-                                 f"would take the bulk path")
-        got, want = ops.dot_interaction(x), ref.dot_interaction_ref(x)
-        tol = DOT_TOL[str(dt).split(".")[-1]]
-        if got.shape != want.shape or not torch.allclose(
-                got.float(), want.float(), rtol=tol, atol=tol):
-            raise AssertionError(f"dot_interaction kernel != plain at "
-                                 f"{(b, f, e, dt, offset)}")
-        paths["bulk" if bulk else "plain"] += 1
-    return json.dumps(paths)
-
-
-def _parity_decode(dev):
-    """Kernel 5 == its plain version: MQA, G = 3, 8 and 16, d = 8, 40
-    (not a multiple of the mma's 16), 192 and 256, S and lengths not
-    multiples of the 64-row tile, chunk above S, lengths 0 and 1, one row
-    split across many CTAs, both dtypes."""
-    import torch
-    from repro_torch.kernels import ops, ref
-    gen = torch.Generator(device=dev).manual_seed(5)
-    cases = 0
-    for b, hq, hkv, d, s, chunk in [(2, 8, 2, 64, 512, 128),
-                                    (3, 16, 8, 128, 300, 128),
-                                    (2, 8, 1, 64, 1024, 256),
-                                    (2, 32, 2, 256, 100, 64),
-                                    (3, 2, 1, 8, 33, 512),
-                                    (1, 32, 8, 128, 20_000, 512),
-                                    (3, 12, 4, 40, 130, 64),
-                                    (2, 16, 2, 192, 700, 128),
-                                    (4, 32, 8, 128, 4100, 512)]:
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                       for shape in ((b, hq, d), (b, s, hkv, d),
-                                     (b, s, hkv, d)))
-            ln = np.random.default_rng(s).integers(1, s + 1, b)
-            if b >= 3:
-                ln[:2] = 0, 1
-            ln = torch.from_numpy(ln.astype(np.int32)).to(dev)
-            _check_decode(ops.flash_decode(q, k, v, ln, chunk=chunk),
-                          ref.flash_decode_ref(q, k, v, ln, chunk=chunk), dt,
-                          f"{(b, hq, hkv, d, s, chunk)}")
-            cases += 1
-    return cases
-
-
-def _parity_approx(rng, ctx, df):
-    """Kernel 1 == its plain version on the approximate sweep's operands:
-    (ROW_TILE, W) masks taken from postings rows (dense head rows, sparse
-    tail rows) against (W, C) gathered candidate columns whose pad columns
-    are zero, for C in APPROX_PARITY_COLS."""
-    import torch
-    from repro_torch.core import sketch
-    from repro_torch.kernels import ops, ref
-    v, w = ctx.vocab_size, ctx.index.n_words
-    order = np.argsort(-df, kind="stable")
-    live = order[df[order] > 0]
-    rows = np.concatenate([live[:ROW_TILE // 2], live[-(ROW_TILE // 2):]])
-    masks = ctx.packed_t_pad()[torch.from_numpy(rows).to(ctx.device), :w]
-    cases = 0
-    for c in APPROX_PARITY_COLS:
-        cols = np.sort(rng.choice(v, min(c, v) * 3 // 4, replace=False))
-        cand = torch.from_numpy(sketch.pad_candidates(cols, v)[:c]).to(
-            ctx.device)
-        sub = ctx.index.packed.index_select(1, cand.clamp(min=0))
-        sub[:, cand < 0] = 0
-        if not torch.equal(ops.postings_counts(masks, sub),
-                           ref.postings_counts_ref(masks, sub)):
-            raise AssertionError(f"postings kernel != plain at approx "
-                                 f"operands, C={c}")
-        cases += 1
-    return cases
-
-
-@serving
-def phase_parity(dev):
-    """Both kernels against their plain versions on the card; then the
-    plain methods "gemm" and "popcount" served at the mid size."""
-    import torch
-    from repro_torch.core import (QueryContext, build_host_index,
-                                  from_uint32, materialize, unpack_bitmap)
-    from repro_torch.core.cooccurrence import _expand_level, initial_state
-    from repro_torch.core.materialize import GROUP
-    from repro_torch.data import synthetic_csl
-    from repro_torch.kernels import ops, ref
-    from repro_torch.serve import CoocEngine
-
-    rng = np.random.default_rng(0)
-    cases = 0
-    # small and ragged postings shapes
-    for b, w, v in [(1, 1, 9), (37, 70, 515), (256, 300, 2049)]:
-        masks, packed, *_ = _level_args(rng, 1, b, v, w, dev)
-        if not torch.equal(ops.postings_counts(masks, packed),
-                           ref.postings_counts_ref(masks, packed)):
-            raise AssertionError(f"postings kernel != plain at {(b, w, v)}")
-        cases += 1
-    # sparse masks: query-structured (1% and 5% of the words), all zero,
-    # one nonzero word at the ragged W edge
-    for b, w, v, frac in [(256, 3001, 2500, 0.01), (96, 1000, 700, 0.05)]:
-        masks = from_uint32(query_masks(rng, b // BEAM, BEAM, w, frac), dev)
-        _check_postings(masks, _level_args(rng, 1, 1, v, w, dev)[1],
-                        f"query masks {(b, w, v, frac)}")
-        cases += 1
-    masks, packed, *_ = _level_args(rng, 1, 37, 515, 70, dev)
-    _check_postings(torch.zeros_like(masks), packed, "all-zero masks")
-    edge = torch.zeros_like(masks)
-    edge[36, 69] = -7
-    _check_postings(edge, packed, "one word at W - 1")
-    cases += 2
-    # level step: ragged, k > v, dedup off, invalid rows, pad columns,
-    # k near and above the 256-column tile, batch-major visited
-    for q, b, v, w, k, dedup in [(1, 5, 97, 7, 6, True),
-                                 (1, 3, 40, 3, 50, False),
-                                 (4, 16, 1000, 130, 16, True),
-                                 (2, 8, 300, 40, 200, True),
-                                 (2, 5, 700, 60, 300, True)]:
-        masks, packed, terms, valid, visited = _level_args(rng, q, b, v, w,
-                                                           dev)
-        _check_level(masks, packed, terms, valid, visited, v, k, dedup)
-        cases += 1
-    # sparse masks: query-structured (1% and 5% of the words; 5 rows a
-    # query, so 4-row tiles straddle queries), and all zero
-    for q, b, v, w, frac in [(8, 32, 2500, 3001, 0.01), (6, 5, 700, 1000,
-                                                         0.05)]:
-        _, packed, terms, valid, visited = _level_args(rng, q, b, v, w, dev)
-        masks = from_uint32(query_masks(rng, q, b, w, frac), dev)
-        _check_level(masks, packed, terms, valid, visited, v, TOPK, True)
-        _check_level(torch.zeros_like(masks), packed, terms, valid, visited,
-                     v, TOPK, True)
-        cases += 2
-    # forced ties: identical postings columns, every count equal
-    masks, packed, terms, valid, visited = _level_args(rng, 1, 8, 300, 5, dev)
-    packed = packed[:, :1].repeat(1, 300).contiguous()
-    _check_level(masks, packed, terms, valid, visited, 300, 16, True)
-    # padding columns past v: every real column visited, so all real counts
-    # are -1 and the padding (-2) must never be returned
-    wide = torch.cat([packed, packed[:, :20]], dim=1)
-    _check_level(masks, wide, terms, torch.ones_like(valid),
-                 torch.ones_like(visited), 300, 16, True)
-    cases += 2
-
-    # mid size: a real index and a real level-1 frontier of 256 rows
-    docs = synthetic_csl(MID_DOCS, MID_TERMS, seed=1)
-    ctx = QueryContext.from_docs(docs, MID_TERMS, device=dev)
-    df = ctx.index.doc_freq.cpu().numpy()
-    seeds = np.argsort(-df, kind="stable")[:Q_BATCH].reshape(Q_BATCH, 1)
-    st = initial_state(ctx.index, torch.from_numpy(seeds), beam=BEAM)
-    st, _ = _expand_level(ctx.index, st, Q_BATCH, TOPK, True, "fused",
-                          ctx.operands("fused"))
-    got = ops.postings_counts(st.masks, ctx.index.packed)
-    if not torch.equal(got, ref.postings_counts_ref(st.masks,
-                                                    ctx.index.packed)):
-        raise AssertionError("postings kernel != plain at the mid size")
-    _check_postings(st.masks, ctx.index.packed, "the mid frontier")
-    _check_level(st.masks, ctx.index.packed, st.terms, st.valid,
-                 st.visited, MID_TERMS, TOPK, True)
-    cases += 2
-    # co-occurrence counts, each on the path it must take: rows that are
-    # not 16-byte aligned take the byte fallback; ragged M, N and K, K
-    # below one stage and a group of four row blocks take the TMA path
-    for d, vl, vr, path in [(33, 17, 9, "bytes"), (300, 200, 100, "bytes"),
-                            (1024, 128, 256, "tma"), (4160, 130, 1000, "tma"),
-                            (32, 600, 300, "tma"), (416, 384, 700, "tma"),
-                            (4096, 512, 2048, "tma")]:
-        xl = torch.from_numpy((rng.random((vl, d)) < 0.15).astype(np.int8)
-                              ).to(dev).t()
-        xr = torch.from_numpy((rng.random((vr, d)) < 0.15).astype(np.int8)
-                              ).to(dev).t()
-        _check_cooccur(xl, xr, path, f"{(d, vl, vr)}")
-        cases += 1
-    # a real group of row blocks of the mid index against its dense
-    # incidence, and structured operands against torch._int_mm
-    xl = unpack_bitmap(ctx.packed_t_pad()[:GROUP * ROW_TILE,
-                                          :ctx.index.n_words], torch.int8).t()
-    _check_cooccur(xl, ctx.x_dense(), "tma", "a mid group of row blocks")
-    for kind in ("ones", "identity"):
-        a = structured_operand(kind, GROUP * ROW_TILE, 8192, dev)
-        b = structured_operand(kind, 2304, 8192, dev)
-        got = ops.cooccur_counts(a.t(), b.t())
-        if not torch.equal(got, torch._int_mm(a, b.t())):
-            raise AssertionError(f"cooccur kernel != torch._int_mm on "
-                                 f"{kind} operands")
-    cases += 3
-    cases += _parity_approx(rng, ctx, df)
-    say("parity", cases=cases, exact=True,
-        mid_rows=st.masks.shape[0], mid_words=ctx.index.n_words,
-        mid_terms=MID_TERMS)
-    say("parity", dot_interaction_cases=_parity_dot(dev),
-        flash_decode_cases=_parity_decode(dev), tol=json.dumps(
-            {"dot_interaction": DOT_TOL, "flash_decode": DECODE_TOL}))
-
-    # the whole mid-size network, through the kernel and the registry
-    nets = {}
-    for method in ("pallas", "gemm", "popcount", "fused"):
-        t0 = time.perf_counter()
-        nets[method] = materialize(ctx, k=MAT_K, method=method)
-        torch.cuda.synchronize()
-        say("parity", materialize=method,
-            seconds=f"{time.perf_counter() - t0:.3f}")
-    for method in ("gemm", "popcount", "fused"):
-        if not same_network(nets[method], nets["pallas"]):
-            raise AssertionError(f"mid materialize: {method} != pallas")
-    say("parity", materialize_methods=4, identical=True,
-        edges=nets["pallas"].num_edges())
-
-    # the plain methods at the mid size, held against the host oracle
-    hidx = build_host_index(docs, MID_TERMS)
-    qseeds = [int(s) for s in np.argsort(-df, kind="stable")[:8]]
-    for method in ("gemm", "popcount"):
-        eng = CoocEngine(ctx, device=dev, depth=DEPTH, topk=TOPK, beam=BEAM,
-                         q_batch=Q_BATCH, method=method)
-        t0 = time.perf_counter()
-        futs = [eng.submit([s]) for s in qseeds]
-        eng.run_until_drained()
-        secs = time.perf_counter() - t0
-        for s, f in zip(qseeds[:4], futs):
-            res = f.result()
-            check_network(res, MID_TERMS)
-            if res.edges() != oracle_edges(hidx, [s], DEPTH, TOPK, BEAM):
-                raise AssertionError(f"method {method} != host oracle, "
-                                     f"seed {s}")
-        extra = ({"x_dense_gb": f"{ctx.x_dense().nbytes / 1e9:.3f}",
-                  "x_dense_dtype": str(ctx.x_dense().dtype)}
-                 if method == "gemm" else {})
-        say("parity", method=method, queries=len(qseeds), oracle_checked=4,
-            batch_s=f"{secs:.4f}", **extra)
-    # a mid-size yardstick: one bf16 matmul of the unpacked operands
-    x16 = unpack_bitmap(ctx.index.packed.T.contiguous(),
-                        torch.bfloat16).T.contiguous()
-    m16 = unpack_bitmap(st.masks, torch.bfloat16)
-    mm_ms = cuda_ms(lambda: torch.matmul(m16, x16), 5)
-    k_ms = cuda_ms(lambda: ops.postings_counts(st.masks, ctx.index.packed), 5)
-    say("parity", mid_postings_kernel_ms=f"{k_ms:.4f}",
-        mid_bf16_matmul_ms=f"{mm_ms:.4f}")
-    del x16, m16, ctx
-    torch.cuda.empty_cache()
 
 
 @serving
@@ -3358,7 +2993,7 @@ def phase_lm(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the seed's side models
+# phase 14: the seed's side models
 # ---------------------------------------------------------------------------
 
 
@@ -3952,7 +3587,7 @@ def phase_side(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: training
+# phase 15: training
 # ---------------------------------------------------------------------------
 
 # dlrm-rm2 trained at full size at RECSYS_SHAPES' train cell: run 1 takes
@@ -4413,7 +4048,7 @@ def phase_train(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the launch layer
+# phase 16: the launch layer
 # ---------------------------------------------------------------------------
 
 # the dry-run's placeholder sweep in the reference's scan mode, then the
@@ -4985,7 +4620,6 @@ def main(argv=()) -> int:
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(card, flush=True)
         return 0
-    phase_parity(dev)
     phase_strings(dev)
     ctx, hidx, seeds, launches = phase_csl(dev)
     exact, exact_s = phase_materialize(dev, ctx, hidx, launches)

@@ -21,8 +21,10 @@ Counts come from ``method=``:
   operands, (rows, K) and (V, K), are staged from the context's forward
   index (doc -> terms, an epoch artifact) with a plan of every group's
   chunks made in one pass over the (doc, term) pairs, whose sizes reach
-  the host once a sweep; the dense incidence is not built.  Under a mesh
-  every group reads ``x_dense``.
+  the host once a sweep; the dense incidence is not built
+  (:func:`_compacted_sweep`).  Under a mesh every group reads all of
+  ``x_dense`` (:func:`_block_topk`, from
+  ``distributed.sharded_row_block_topk`` or ``sharded_block_topk``).
   The reference streams column tiles through a running top-k merge
   instead; one exact top-k over each row's counts gives the same values
   and tie order (the reference's own docstring says the two orders
@@ -151,7 +153,12 @@ def _block_topk(pidx: PackedIndex, rows: torch.Tensor,
     transposed postings; rows past V have all-zero masks.  ``bm`` is a
     multiple of the row tile: one row block, or a group of them.  With
     ``shards`` the block's columns split across the mesh
-    (:func:`~repro_torch.core.distributed.sharded_block_topk`).  While a
+    (:func:`~repro_torch.core.distributed.sharded_block_topk`, strategy
+    ``"cols"``).  Without, ``"pallas"`` counts the block through kernel 3
+    against the whole ``x_dense``: reached only under a mesh, through
+    :func:`~repro_torch.core.distributed.sharded_row_block_topk`
+    (strategy ``"rows"``, each shard's blocks on its device), since one
+    device's ``"pallas"`` sweep is :func:`_compacted_sweep`.  While a
     profile records, the block's three phases are spans of
     :mod:`repro_torch.tracing`: ``cooc.materialize.masks`` (the filter
     bitmaps and their unpack; attribute ``docs``, the documents the count

@@ -95,12 +95,18 @@ def smoke(monkeypatch):
                         ("DECODE_SHAPES", {"decode_32k": (3, 100),
                                            "long_500k": (1, 300)})]:
         monkeypatch.setattr(chip_smoke, name, value)
-    return chip_smoke
+    # the phases run plain PyTorch on tiny tensors: one intra-op thread,
+    # so that a pool of a thread per core does not stall beside the other
+    # test workers (on 8 cores beside six busy processes, the phases test
+    # took 180 s with 8 threads and 12 s with one)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield chip_smoke
+    torch.set_num_threads(threads)
 
 
 def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     dev = torch.device("cpu")
-    smoke.phase_parity(dev)
     smoke.phase_strings(dev)
     ctx, hidx, seeds, launches = smoke.phase_csl(dev)
     assert launches == {"level_step": 6, "postings_counts": 6}
@@ -135,9 +141,6 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert "[csl] method=fused" in out and "[csl] method=pallas" in out
     assert "[materialize] method=pallas" in out
     assert "[materialize] method=gemm" in out
-    # kernel 4's parity: 16 cases; the plain path takes the two unaligned
-    # views and the three shapes whose rows are not whole 16-byte words
-    assert 'dot_interaction_cases={"bulk": 11, "plain": 5}' in out
     assert "[materialize] identical=True rows_checked=16" in out
     # the quickstart snapshot, and the approximate CSL sweep both ways
     assert "[strings] snapshot_blobs=" in out
@@ -164,7 +167,6 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(smoke, capsys):
     assert "[approx] identical=True sig_s=" in out
     assert "[approx] kernel=postings_counts row_block=" in out
     assert "signatures_checked=" in out
-    assert "materialize_methods=4 identical=True" in out
     assert "kernel=postings_counts frontier=level-1 tile_rows=4 " in out
     assert "compaction_ms=" in out
     for level in (0, 2):
@@ -307,7 +309,7 @@ def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the LM serving path
+# phase 13: the LM serving path
 # ---------------------------------------------------------------------------
 
 LM_SMALL = dict(n_layers=2, d_model=128, n_heads=4, d_ff=256, vocab_size=512,
@@ -398,8 +400,8 @@ def test_chip_smoke_lm_only_runs_the_device_and_lm_phases(smoke, monkeypatch,
     monkeypatch.setattr(smoke, "phase_device",
                         lambda: calls.append("device") or "stub card, 700 W")
     monkeypatch.setattr(smoke, "phase_lm", lambda dev: calls.append("lm"))
-    monkeypatch.setattr(smoke, "phase_parity", lambda dev: calls.append(
-        "parity"))
+    monkeypatch.setattr(smoke, "phase_strings", lambda dev: calls.append(
+        "strings"))
     assert smoke.main(["--lm-only"]) == 0
     assert calls == ["device", "lm"]
     out = capsys.readouterr().out
@@ -407,7 +409,7 @@ def test_chip_smoke_lm_only_runs_the_device_and_lm_phases(smoke, monkeypatch,
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the side models
+# phase 14: the side models
 # ---------------------------------------------------------------------------
 
 
@@ -507,7 +509,7 @@ def test_chip_smoke_side_only_runs_the_device_and_side_phases(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(smoke, "phase_device",
                         lambda: calls.append("device") or "stub card, 700 W")
-    for name in ("phase_side", "phase_lm", "phase_parity"):
+    for name in ("phase_side", "phase_lm", "phase_strings"):
         monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
     assert smoke.main(["--side-only"]) == 0
     assert calls == ["device", "phase_side"]
@@ -516,7 +518,7 @@ def test_chip_smoke_side_only_runs_the_device_and_side_phases(
 
 
 # ---------------------------------------------------------------------------
-# phase 16: training
+# phase 15: training
 # ---------------------------------------------------------------------------
 
 
@@ -658,7 +660,7 @@ def test_chip_smoke_train_only_runs_the_device_and_train_phases(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(smoke, "phase_device",
                         lambda: calls.append("device") or "stub card, 700 W")
-    for name in ("phase_train", "phase_side", "phase_parity"):
+    for name in ("phase_train", "phase_side", "phase_strings"):
         monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
     assert smoke.main(["--train-only"]) == 0
     assert calls == ["device", "phase_train"]
@@ -667,7 +669,7 @@ def test_chip_smoke_train_only_runs_the_device_and_train_phases(
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the launch layer
+# phase 16: the launch layer
 # ---------------------------------------------------------------------------
 
 LAUNCH_SMALL_CELLS = [("llama3-8b", "decode_32k"), ("dlrm-rm2", "serve_p99"),
@@ -765,7 +767,7 @@ def test_chip_smoke_launch_only_runs_the_device_and_launch_phases(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(smoke, "phase_device",
                         lambda: calls.append("device") or "stub card, 700 W")
-    for name in ("phase_launch", "phase_train", "phase_parity"):
+    for name in ("phase_launch", "phase_train", "phase_strings"):
         monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
     assert smoke.main(["--launch-only"]) == 0
     assert calls == ["device", "phase_launch"]
@@ -774,7 +776,7 @@ def test_chip_smoke_launch_only_runs_the_device_and_launch_phases(
 
 
 # ---------------------------------------------------------------------------
-# phases 18 and 19: ids out of range, the examples
+# phases 17 and 18: ids out of range, the examples
 # ---------------------------------------------------------------------------
 
 
@@ -840,7 +842,7 @@ def test_chip_smoke_ids_only_runs_the_device_ids_and_examples_phases(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(smoke, "phase_device",
                         lambda: calls.append("device") or "stub card, 700 W")
-    for name in ("phase_ids", "phase_examples", "phase_parity"):
+    for name in ("phase_ids", "phase_examples", "phase_strings"):
         monkeypatch.setattr(smoke, name, lambda dev, n=name: calls.append(n))
     assert smoke.main(["--ids-only"]) == 0
     assert calls == ["device", "phase_ids", "phase_examples"]

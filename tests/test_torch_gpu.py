@@ -14,11 +14,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import query_masks, structured_operand  # noqa: E402
 from repro_torch.core import QueryContext, QuerySpec, construct  # noqa: E402
 from repro_torch.core.inverted_index import from_uint32  # noqa: E402
 from repro_torch.data import synthetic_csl  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from torch_operands import query_masks, structured_operand  # noqa: E402
 
 
 @pytest.fixture
@@ -104,12 +104,16 @@ def test_postings_compaction_matches_plain(cuda, b, kind):
     (2, 8, 300, 40, 16, True, "zeros"),     # no active word at all
     (5, 5, 600, 300, 16, True, "query5"),   # 4-row tiles straddle queries
     (2, 5, 700, 200, 300, True, "query5"),  # k = 300, above the tile
+    (1, 8, 300, 5, 16, True, "ties"),       # identical columns: all tied
 ])
 def test_level_step_kernel_matches_plain(cuda, q, b, v, w, k, dedup, kind):
     rng = np.random.default_rng(q * b * v)
     r = q * b
     packed = _bits(rng, (w, v), cuda)
-    masks = _masks(rng, kind, r, w, cuda, per_query=b, density=0.8)
+    if kind == "ties":                      # every count of a row equal
+        packed = packed[:, :1].repeat(1, v).contiguous()
+    masks = _masks(rng, "dense" if kind == "ties" else kind, r, w, cuda,
+                   per_query=b, density=0.8)
     terms = torch.from_numpy(rng.integers(-1, v, r)).to(cuda)
     valid = torch.from_numpy(rng.integers(0, 2, r).astype(bool)).to(cuda)
     visited = torch.from_numpy(rng.integers(0, 2, (q, v)).astype(bool)).to(cuda)
@@ -142,6 +146,47 @@ def test_level_step_kernel_reads_padded_packed_columns(cuda):
                               k=16, dedup=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[0] == -1).all() and (got[1] < v).all()
+
+
+@pytest.mark.gpu
+def test_kernels_on_a_real_index_match_plain(cuda):
+    """Kernels 1 and 2, and kernel 1's compaction launch, on a real level-1
+    frontier (8 queries of a 32-row beam from the most frequent terms of
+    2^15 documents over 2^13 terms, after one "fused" level); kernel 3 on
+    the index's first row group against the context's ``x_dense``."""
+    from repro_torch.core import unpack_bitmap
+    from repro_torch.core.cooccurrence import _expand_level, initial_state
+    from repro_torch.core.materialize import GROUP
+    from repro_torch.kernels import postings
+    v, q = 1 << 13, 8
+    ctx = QueryContext.from_docs(synthetic_csl(1 << 15, v, seed=1), v,
+                                 device=cuda)
+    df = ctx.index.doc_freq.cpu().numpy()
+    seeds = np.argsort(-df, kind="stable")[:q].reshape(q, 1)
+    st = initial_state(ctx.index, torch.from_numpy(seeds), beam=32)
+    st, _ = _expand_level(ctx.index, st, q, 16, True, "fused",
+                          ctx.operands("fused"))
+    masks, packed = st.masks, ctx.index.packed
+    assert masks.shape[0] == q * 32 and bool((masks != 0).any())
+    assert torch.equal(ops.postings_counts(masks, packed),
+                       ref.postings_counts_ref(masks, packed))
+    words, n = postings.active_words_cuda(masks)[:2]
+    want_words, want_n = ref.active_words_ref(masks, postings.ROWS)
+    first = torch.arange(words.shape[1], device=cuda) < n[:, None]
+    assert torch.equal(n, want_n)
+    assert torch.equal(torch.where(first, words, -1), want_words)
+    got = ops.level_step(masks, packed, st.terms, st.valid, st.visited, v=v,
+                         k=16, dedup=True)
+    want = ref.level_step_ref(masks, packed, st.terms, st.valid, st.visited,
+                              v=v, k=16, dedup=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    xl = unpack_bitmap(ctx.packed_t_pad()[:GROUP * 128, :ctx.index.n_words],
+                       torch.int8).t()
+    paths = dict(ops.COOCCUR_PATHS)
+    got = ops.cooccur_counts(xl, ctx.x_dense())
+    torch.cuda.synchronize()
+    assert ops.COOCCUR_PATHS["tma"] == paths["tma"] + 1
+    assert torch.equal(got, ref.cooccur_counts_ref(xl, ctx.x_dense()))
 
 
 @pytest.mark.gpu
@@ -440,19 +485,23 @@ _DOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 _DOT_SHAPES = [
     (128, 27, 64, torch.float32, 0), (37, 27, 64, torch.float32, 0),
+    (1, 27, 64, torch.float32, 0),
     (64, 8, 16, torch.float32, 0), (256, 40, 10, torch.float32, 0),
     (1001, 64, 256, torch.float32, 0),   # fewer samples a CTA
     (37, 27, 64, torch.bfloat16, 0), (5, 27, 63, torch.bfloat16, 0),
     (3, 2, 1, torch.float32, 0),
     # the DLRM cells' interaction input: serve_p99 and serve_bulk
     (512, 27, 64, torch.float32, 0), (512, 27, 64, torch.bfloat16, 0),
+    (513, 27, 64, torch.bfloat16, 0),
     (262_144, 27, 64, torch.float32, 0), (262_144, 27, 64, torch.bfloat16, 0),
     # both sides of the plan's switches on 132 SMs: past one wave of one
     # CTA a SM (528 samples), to the persistent ring past 3 CTAs a SM (1,584)
     (528, 27, 64, torch.float32, 0), (529, 27, 64, torch.float32, 0),
     (1584, 27, 64, torch.float32, 0), (1585, 27, 64, torch.float32, 0),
+    (1585, 27, 64, torch.bfloat16, 0),
     # x one element into its buffer: the plain load path
     (512, 27, 64, torch.float32, 1), (1585, 27, 64, torch.bfloat16, 1),
+    (300, 27, 64, torch.bfloat16, 1),
 ]
 
 

@@ -8,9 +8,6 @@ values and tie order, on inputs drawn with numpy from a fixed seed.  The
 hand-written CUDA kernels are held against the plain versions in
 ``test_torch_gpu.py``, which needs a card and no jax.
 """
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 
@@ -21,9 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core.inverted_index import from_uint32  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import query_masks  # noqa: E402
+from torch_operands import query_masks  # noqa: E402
 
 
 def _t(a):
@@ -224,7 +219,7 @@ def test_level_step_batch_major_equals_separate_queries(dedup):
 ])
 def test_level_step_on_query_masks_matches_reference(frac, q, v, w, k):
     """Frontier masks shaped like the BFS's (a query's rows nonzero only
-    inside its seed support, ``chip_smoke.query_masks``), 5 rows a query
+    inside its seed support, ``torch_operands.query_masks``), 5 rows a query
     so that 4-row tiles straddle queries: the port == the reference."""
     rng = np.random.default_rng(int(frac * 100) + v)
     b = 5

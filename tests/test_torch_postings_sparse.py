@@ -5,9 +5,6 @@ active words against the dense plain version and the JAX reference, and
 the decode kernel's split plan.  The CUDA launches themselves are held
 against these plain versions in ``test_torch_gpu.py``.
 """
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 
@@ -20,9 +17,7 @@ from repro_torch.core.inverted_index import from_uint32  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_decode import TILE, split_plan  # noqa: E402
 from repro_torch.kernels.postings import ROWS  # noqa: E402
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import query_masks  # noqa: E402
+from torch_operands import query_masks  # noqa: E402
 
 
 def _np_active(masks, rows):
